@@ -1,0 +1,216 @@
+// Device code shared by the gated-stack kernel (gated_stack.cu) and the
+// whole-process sampler (sampler.cu): one bf16 tile GEMM with f32
+// accumulation on the tensor cores (nvcuda::wmma 16x16x16 fragments), and
+// the A-operand addressing the two stack GEMMs need.
+//
+// Tile: a block of 256 threads (8 warps, each 32 x 32) computes BM=64 rows
+// x 2*BN=128 columns, where the columns are TWO slices of BN=64 of the weight
+// matrix (col0.. and col1..). The gated stack uses col1 = col0 + C so that
+// one block holds both halves of a gate pair (sigmoid half, tanh half) or of
+// an output pair (residual half, skip half) and can finish them in its
+// epilogue. K advances BK=32 per stage through a STAGES-deep ring of
+// cp.async copies in shared memory, so three tiles are in flight while one
+// is multiplied; rows that fall outside the operand are zero-filled by the
+// copy itself. The result is left in shared memory as f32.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace drk {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+constexpr int BM = 64;           // rows per block
+constexpr int BN = 64;           // columns per half
+constexpr int BK = 32;           // K per pipeline stage
+constexpr int STAGES = 4;        // depth of the cp.async ring
+constexpr int NT = 256;          // threads per block (8 warps)
+constexpr int A_LD = BK + 8;     // padded smem strides (bf16 elements)
+constexpr int B_LD = 2 * BN + 8;
+constexpr int C_LD = 2 * BN + 4; // f32 elements
+constexpr int A_STAGE = BM * A_LD;
+constexpr int B_STAGE = BK * B_LD;
+constexpr int AB_BYTES = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
+constexpr int C_BYTES = BM * C_LD * (int)sizeof(float);
+constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;  // dynamic: > 48 KB
+constexpr int A_VECS = BM * BK / 8 / NT;      // 16-byte A loads per thread per stage
+constexpr int B_VECS = BK * 2 * BN / 8 / NT;  // 16-byte B loads per thread per stage
+constexpr int EPI_VECS = BM * BN / 8 / NT;    // 8-column epilogue items per thread
+constexpr float SQRT_HALF = 0.7071067811865476f;
+
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  uint4 r;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return r;
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float sigmoidf(float a) { return 1.0f / (1.0f + expf(-a)); }
+
+// 16-byte global -> shared copy, zero-filling when !valid (nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// The source of A[m0 + r, k0 + kv .. +8] for a plain row-major bf16 matrix.
+struct RowSrc {
+  const bf16* a;
+  int lda, m0, M;
+  __device__ __forceinline__ const bf16* operator()(int r, int k0, int kv, bool& valid) const {
+    const int m = m0 + r;
+    valid = m < M;
+    return a + (size_t)(valid ? m : 0) * lda + k0 + kv;
+  }
+};
+
+// The gate GEMM's A operand: K runs over `taps` shifted copies of
+// y = bf16(x + tb) (written once per layer, see launch_stack), then over the
+// padded conditioner lanes when `cond` is given. Row m is frame t = m % T of
+// sequence b = m / T; a tap reads frame t + off of the SAME sequence and is
+// zero outside [0, T), so a shift never crosses a batch boundary.
+struct TapSrc {
+  const bf16* y;      // (M, C)
+  const bf16* cond;   // (M, mp) or nullptr
+  int mp;
+  int m0, M, T, C, kc, ctr, dil;  // kc = taps * C
+  __device__ __forceinline__ const bf16* operator()(int r, int k0, int kv, bool& valid) const {
+    const int m = m0 + r;
+    if (k0 < kc) {
+      const int j = k0 / C;
+      const int c = k0 - j * C + kv;
+      const int off = (j - ctr) * dil;
+      const int t = m % T + off;
+      valid = m < M && t >= 0 && t < T;
+      return y + (size_t)(valid ? m + off : 0) * C + c;
+    }
+    valid = m < M;
+    return cond + (size_t)(valid ? m : 0) * mp + (k0 - kc) + kv;
+  }
+};
+
+// (BM x 2BN) = A[m0:m0+BM, 0:K] @ [W[:, col0:col0+BN] | W[:, col1:col1+BN]],
+// W row-major with leading dimension ldw; K % BK == 0. On return the f32
+// tile is in smem as Cs[BM][C_LD] and every thread has passed a barrier.
+template <class SrcA>
+__device__ __forceinline__ void gemm_tile(const SrcA& src_a, const bf16* __restrict__ w,
+                                          int ldw, int col0, int col1, int K,
+                                          unsigned char* smem) {
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + STAGES * A_STAGE;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;   // rows wm*32 .. +32
+  const int wn = warp >> 1;  // tile columns wn*32 .. +32 (0, 1: first half; 2, 3: second)
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  auto issue = [&](int kt) {
+    const int k0 = kt * BK, buf = kt % STAGES;
+#pragma unroll
+    for (int s = 0; s < A_VECS; ++s) {
+      const int v = tid + s * NT;
+      const int r = v >> 2, kv = (v & 3) * 8;
+      bool valid;
+      const bf16* src = src_a(r, k0, kv, valid);
+      cp_async16(As + buf * A_STAGE + r * A_LD + kv, src, valid);
+    }
+#pragma unroll
+    for (int s = 0; s < B_VECS; ++s) {
+      const int v = tid + s * NT;
+      const int kr = v >> 4, cv = (v & 15) * 8;
+      const int col = cv < BN ? col0 + cv : col1 + cv - BN;
+      cp_async16(Bs + buf * B_STAGE + kr * B_LD + cv, w + (size_t)(k0 + kr) * ldw + col, true);
+    }
+  };
+
+  const int nk = K / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();              // ... for every thread; buffer (kt-1) % STAGES is free
+    if (kt + STAGES - 1 < nk) issue(kt + STAGES - 1);
+    cp_async_commit();
+    const bf16* a = As + (kt % STAGES) * A_STAGE;
+    const bf16* b = Bs + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * A_LD + kk, A_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], b + kk * B_LD + wn * 32 + j * 16, B_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the f32 tile below reuses the ring's memory
+
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j],
+                              C_LD, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// One pass of the L gated residual layers over M = (sequences x T) rows.
+struct StackArgs {
+  bf16* x;               // (M, C) hidden state, bf16, updated in place
+  float* skip;           // (M, C) out: sum of skips / sqrt(L)
+  bf16* g;               // (M, C) scratch: the gated activations
+  bf16* y;               // (M, C) scratch: bf16(x + tb[l]), the taps' input
+  const float* tb;       // time bias: tb[l * tb_ls + b * tb_bs + c]
+  int tb_ls, tb_bs;
+  const bf16* cond;      // (M, mp) padded conditioner in the gate GEMM, or nullptr
+  int mp;
+  const bf16* wcat;      // (L, w_rows, 2C): taps*C tap rows, then conditioner rows
+  int w_rows;
+  const float* colbias;  // (L, 2C) gate bias, or nullptr
+  const float* rowbias;  // (L, M, 2C) precomputed per-row gate term, or nullptr
+  const bf16* wo;        // (L, C, 2C) output projection
+  const float* bo;       // (L, 2C)
+  const int* dil;        // host array, L dilations
+  int L, M, T, C, taps;
+};
+
+// Launches 1 + 2L kernels on `stream`; returns cudaGetLastError().
+cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream);
+
+}  // namespace drk
