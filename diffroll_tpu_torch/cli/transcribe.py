@@ -16,20 +16,19 @@ from __future__ import annotations
 import json
 import pathlib
 import sys
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from diffroll_tpu.eval.notes import extract_notes
-from diffroll_tpu.io.midi import write_midi
-from diffroll_tpu.io.wav import read_wav, resample
-
 from ..compat.torch_ckpt import load_lightning
-from ..config import ExperimentConfig, apply_overrides, parse_argv
+from ..config import ExperimentConfig, from_argv
+from ..eval.notes import extract_notes
+from ..io.midi import write_midi
+from ..io.wav import read_wav, resample
 from ..tasks.diffusion import DiffusionTask
 from ..tasks.transcribe import transcribe_long
+from ._common import make_run_dir, resolve_device
 
 
 def export_clip(run_dir: pathlib.Path, name: str, roll: np.ndarray,
@@ -48,14 +47,6 @@ def export_clip(run_dir: pathlib.Path, name: str, roll: np.ndarray,
     return int(len(pitches))
 
 
-def make_run_dir(cfg: ExperimentConfig, kind: str) -> pathlib.Path:
-    name = cfg.trainer.run_name or cfg.describe()
-    stamp = time.strftime("%Y-%m-%d/%H-%M-%S")
-    run_dir = pathlib.Path(cfg.trainer.output_dir) / stamp / f"{kind}-{name}"
-    run_dir.mkdir(parents=True, exist_ok=True)
-    return run_dir
-
-
 def main(argv: Optional[List[str]] = None) -> pathlib.Path:
     argv = sys.argv[1:] if argv is None else argv
     overlap = 32
@@ -65,15 +56,12 @@ def main(argv: Optional[List[str]] = None) -> pathlib.Path:
             overlap = int(tok.split("=", 1)[1])
         else:
             rest.append(tok)
-    positional, overrides = parse_argv(rest)
+    cfg, positional, overrides = from_argv(rest, "sampling")
     if positional:
         raise SystemExit(f"unexpected arguments: {positional}")
-    cfg = apply_overrides(ExperimentConfig(), overrides)
     if not cfg.pretrained_path or pathlib.Path(cfg.pretrained_path).suffix != ".ckpt":
         raise SystemExit("pretrained_path=<file>.ckpt (a Lightning checkpoint) is required")
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("device=cuda but no CUDA device is available; pass device=cpu")
+    device = resolve_device(cfg)
 
     model_over = {k[len("model."):]: v for k, v in overrides.items()
                   if k.startswith("model.")}

@@ -13,7 +13,14 @@ to plain Python values.
 
 `state_dict_from_jax` is the inverse of the JAX package's
 `convert_state_dict`: it carries JAX params into a port state_dict
-(kernel (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I)).
+(kernel (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I)). Gradients are the
+same tree as the params, so `grads_from_jax` carries them the same way, and
+`adam_state_from_optax` carries `optax.adam`'s mu / nu / count into
+`torch.optim.Adam`'s per-parameter state.
+
+Checkpoints written by the port's own `train` add `port_config` (the full
+model and task configs) to `hyper_parameters`; where it is present it wins
+over the reference's keys.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import torch
 
 from ..config.overrides import apply_overrides
 from ..models import PRESETS
+from ..dsp.mel import MelConfig
 from ..models.base import DiffRollConfig, DiffRollModel
+from ..tasks.diffusion import TaskConfig
 
 
 class _Stub(dict):
@@ -115,6 +124,9 @@ SKIP_PREFIXES = (
 def config_from_hparams(hparams: Dict[str, Any],
                         name: str = "ClassifierFreeDiffRoll") -> DiffRollConfig:
     """Best-effort DiffRollConfig from a checkpoint's hyper_parameters."""
+    port = hparams.get("port_config")
+    if port:
+        return _dataclass_from(DiffRollConfig, port["model"])
     cfg = PRESETS.get(name, DiffRollConfig())
     fields = ("residual_channels", "residual_layers", "kernel_size",
               "dilation_base", "dilation_bound", "spec_dropout", "condition",
@@ -141,6 +153,29 @@ def config_from_hparams(hparams: Dict[str, Any],
     return cfg.replace(**updates)
 
 
+def _dataclass_from(cls, body: Dict[str, Any]):
+    """A (possibly nested) config dataclass from its plain-dict record;
+    unknown keys are dropped and lists become tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in body.items():
+        if k not in names:
+            continue
+        if k == "mel" and isinstance(v, dict):
+            v = _dataclass_from(MelConfig, v)
+        kwargs[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs)
+
+
+def task_config_from_hparams(hparams: Dict[str, Any]) -> TaskConfig:
+    """The TaskConfig a checkpoint records: whole where the port wrote it,
+    else the defaults under the recorded reference knobs."""
+    port = hparams.get("port_config")
+    if port:
+        return _dataclass_from(TaskConfig, port["task"])
+    return TaskConfig().replace(**task_updates_from_hparams(hparams))
+
+
 def task_updates_from_hparams(hparams: Dict[str, Any]) -> Dict[str, Any]:
     """Task knobs recorded in a checkpoint, as TaskConfig field updates."""
     out: Dict[str, Any] = {}
@@ -162,16 +197,19 @@ def task_updates_from_hparams(hparams: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _read_ckpt(path: str) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-    """torch.load with the tolerant pickle module -> (hparams, state_dict)."""
+def read_ckpt(path: str) -> Dict[str, Any]:
+    """torch.load with the tolerant pickle module: the checkpoint's dict, its
+    `hyper_parameters` coerced to plain Python (always present)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False,
                       pickle_module=_TolerantPickleModule)
-    state_dict = ckpt.get("state_dict", ckpt)
+    if "state_dict" not in ckpt:
+        ckpt = {"state_dict": ckpt}
     hparams = plain_hparams(ckpt.get("hyper_parameters", {}))
-    return (hparams if isinstance(hparams, dict) else {}), state_dict
+    ckpt["hyper_parameters"] = hparams if isinstance(hparams, dict) else {}
+    return ckpt
 
 
-def _weights_only(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def weights_only(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in state_dict.items()
             if not any(k.startswith(p) for p in SKIP_PREFIXES)}
 
@@ -187,10 +225,11 @@ def load_lightning(
     config keys (`{"frames": "16"}`) applied over the recorded hparams. The
     weights go in through `load_state_dict`, strictly: a layout mismatch
     raises."""
-    hparams, state_dict = _read_ckpt(path)
+    ckpt = read_ckpt(path)
+    hparams, state_dict = ckpt["hyper_parameters"], ckpt["state_dict"]
     cfg = apply_overrides(config_from_hparams(hparams, model_name), overrides or {})
     model = DiffRollModel(cfg)
-    model.net.load_state_dict(_weights_only(state_dict))
+    model.net.load_state_dict(weights_only(state_dict))
     return model.to(device).eval(), task_updates_from_hparams(hparams)
 
 
@@ -224,3 +263,30 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for leaf, arr in sub.items():
                 put(scope, leaf, arr)
     return out
+
+
+def grads_from_jax(grads: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's gradients (the params' tree, numpy leaves) -> a dict
+    under the port's parameter names, in the port's layouts."""
+    return state_dict_from_jax(grads)
+
+
+def adam_state_from_optax(mu: Dict[str, Any], nu: Dict[str, Any], count: int,
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """`optax.adam`'s moments (the params' tree each) and step count ->
+    `torch.optim.Adam`'s state per parameter name: step, exp_avg, exp_avg_sq."""
+    m, v = state_dict_from_jax(mu), state_dict_from_jax(nu)
+    return {name: {"step": torch.tensor(float(count)), "exp_avg": m[name],
+                   "exp_avg_sq": v[name]} for name in m}
+
+
+def load_adam_state(optimizer: torch.optim.Adam, net: torch.nn.Module,
+                    named_state: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    """Put a per-name Adam state (`adam_state_from_optax`) onto `optimizer`,
+    whose parameters are `net`'s."""
+    for name, p in net.named_parameters():
+        st = named_state[name]
+        optimizer.state[p] = {
+            "step": st["step"].clone(),
+            "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype).clone()}

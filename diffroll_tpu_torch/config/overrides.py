@@ -92,6 +92,13 @@ def apply_overrides(cfg: Any, overrides: Dict[str, Any]) -> Any:
             raise KeyError(f"unknown config group {name!r} on {type(cfg).__name__}; "
                            f"choices: {sorted(fields)}")
         child = updates.get(name, getattr(cfg, name))
+        if child is None:
+            # an Optional group (dataset2): start from its default so dotted
+            # overrides can populate it
+            dc_args = [a for a in typing.get_args(hints.get(name))
+                       if dataclasses.is_dataclass(a)]
+            if dc_args:
+                child = dc_args[0]()
         if not (dataclasses.is_dataclass(child) and not isinstance(child, type)):
             raise KeyError(f"config key {name!r} is not a group; cannot set {sub}")
         updates[name] = apply_overrides(child, sub)

@@ -60,9 +60,13 @@ struct GateArgs {
   const float* colbias;  // (2C) or nullptr
   const float* rowbias;  // (M, 2C) or nullptr
   bf16* g;
+  bf16* a_save;          // (M, 2C) or nullptr: the pre-gate activation, for the backward
   int M, T, C, taps, dil;
 };
 
+// SAVE (the training forward) also stores the pre-gate activation. It is a
+// template argument so that the inference kernel carries none of it.
+template <bool SAVE>
 __global__ void __launch_bounds__(NT) gate_kernel(GateArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * BN;
@@ -79,7 +83,7 @@ __global__ void __launch_bounds__(NT) gate_kernel(GateArgs p) {
     const int m = m0 + r;
     if (m >= p.M) continue;
     const float* rb = p.rowbias ? p.rowbias + (size_t)m * 2 * p.C : nullptr;
-    float out[8];
+    float out[8], s1[SAVE ? 8 : 1], s2[SAVE ? 8 : 1];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int n = n0 + cv + e;
@@ -94,8 +98,17 @@ __global__ void __launch_bounds__(NT) gate_kernel(GateArgs p) {
         a2 += rb[p.C + n];
       }
       out[e] = sigmoidf(a1) * tanhf(a2);
+      if constexpr (SAVE) {
+        s1[e] = a1;
+        s2[e] = a2;
+      }
     }
     *reinterpret_cast<uint4*>(p.g + (size_t)m * p.C + n0 + cv) = pack8(out);
+    if constexpr (SAVE) {
+      bf16* row = p.a_save + (size_t)m * 2 * p.C + n0 + cv;
+      *reinterpret_cast<uint4*>(row) = pack8(s1);
+      *reinterpret_cast<uint4*>(row + p.C) = pack8(s2);
+    }
   }
 }
 
@@ -103,7 +116,8 @@ struct OutArgs {
   const bf16* g;
   const bf16* w;         // this layer's (C, 2C)
   const float* bo;       // (2C)
-  bf16* x;
+  const bf16* x_in;      // this layer's input x ...
+  bf16* x_out;           // ... and its output (the same buffer unless x is being saved)
   float* skip;
   bf16* y;               // the next layer's taps input, when tb_next is set
   const float* tb_next;  // the next layer's time bias, or nullptr
@@ -127,7 +141,7 @@ __global__ void __launch_bounds__(NT) out_kernel(OutArgs p) {
     if (m >= p.M) continue;
     const size_t off = (size_t)m * p.C + n0 + cv;
     float xv[8], sv[8];
-    unpack8(*reinterpret_cast<const uint4*>(p.x + off), xv);
+    unpack8(*reinterpret_cast<const uint4*>(p.x_in + off), xv);
     if (p.accumulate) {
       const float4 s0 = *reinterpret_cast<const float4*>(p.skip + off);
       const float4 s1 = *reinterpret_cast<const float4*>(p.skip + off + 4);
@@ -146,7 +160,7 @@ __global__ void __launch_bounds__(NT) out_kernel(OutArgs p) {
       sv[e] = (sv[e] + out_s) * p.scale;
     }
     const uint4 xq = pack8(xv);
-    *reinterpret_cast<uint4*>(p.x + off) = xq;
+    *reinterpret_cast<uint4*>(p.x_out + off) = xq;
     *reinterpret_cast<float4*>(p.skip + off) = make_float4(sv[0], sv[1], sv[2], sv[3]);
     *reinterpret_cast<float4*>(p.skip + off + 4) = make_float4(sv[4], sv[5], sv[6], sv[7]);
     if (p.tb_next) {  // y for the next layer, from the bf16-rounded x
@@ -162,8 +176,11 @@ __global__ void __launch_bounds__(NT) out_kernel(OutArgs p) {
 cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream) {
   static bool smem_set = false;  // the GEMM ring needs > 48 KB of dynamic shared memory
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
+    cudaError_t e = cudaFuncSetAttribute(
+        gate_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gate_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
@@ -173,7 +190,9 @@ cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream) {
   const dim3 grid(a.C / BN, (a.M + BM - 1) / BM);
   const size_t two_c = 2 * (size_t)a.C;
   const int prep_blocks = (int)(((size_t)a.M * a.C / 8 + NT - 1) / NT);
-  prep_kernel<<<prep_blocks, NT, 0, stream>>>(a.x, a.tb, a.tb_bs, a.y, a.M, a.T, a.C);
+  const size_t mc = (size_t)a.M * a.C;
+  prep_kernel<<<prep_blocks, NT, 0, stream>>>(a.xs ? a.xs : a.x, a.tb, a.tb_bs, a.y, a.M, a.T,
+                                              a.C);
   for (int l = 0; l < a.L; ++l) {
     GateArgs ga;
     ga.y = a.y;
@@ -183,18 +202,23 @@ cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream) {
     ga.colbias = a.colbias ? a.colbias + l * two_c : nullptr;
     ga.rowbias = a.rowbias ? a.rowbias + (size_t)l * a.M * two_c : nullptr;
     ga.g = a.g;
+    ga.a_save = a.a_save ? a.a_save + (size_t)l * 2 * mc : nullptr;
     ga.M = a.M;
     ga.T = a.T;
     ga.C = a.C;
     ga.taps = a.taps;
     ga.dil = a.dil[l];
-    gate_kernel<<<grid, NT, SMEM_BYTES, stream>>>(ga);
+    if (a.a_save)
+      gate_kernel<true><<<grid, NT, SMEM_BYTES, stream>>>(ga);
+    else
+      gate_kernel<false><<<grid, NT, SMEM_BYTES, stream>>>(ga);
 
     OutArgs oa;
     oa.g = a.g;
     oa.w = a.wo + (size_t)l * a.C * two_c;
     oa.bo = a.bo + l * two_c;
-    oa.x = a.x;
+    oa.x_in = a.xs ? a.xs + (size_t)l * mc : a.x;
+    oa.x_out = a.xs && l + 1 < a.L ? a.xs + (size_t)(l + 1) * mc : a.x;
     oa.skip = a.skip;
     oa.y = a.y;
     oa.tb_next = l + 1 < a.L ? a.tb + (size_t)(l + 1) * a.tb_ls : nullptr;

@@ -1,5 +1,6 @@
-// Device code shared by the gated-stack kernel (gated_stack.cu) and the
-// whole-process sampler (sampler.cu): one bf16 tile GEMM with f32
+// Device code shared by the gated-stack kernel (gated_stack.cu), the
+// whole-process sampler (sampler.cu) and the training kernels
+// (gated_stack_train.cu): one bf16 tile GEMM with f32
 // accumulation on the tensor cores (nvcuda::wmma 16x16x16 fragments), and
 // the A-operand addressing the two stack GEMMs need.
 //
@@ -208,9 +209,15 @@ struct StackArgs {
   const float* bo;       // (L, 2C)
   const int* dil;        // host array, L dilations
   int L, M, T, C, taps;
+  // The training forward's saves (gated_stack_train.cu), both or neither:
+  bf16* xs = nullptr;      // (L, M, C): every layer's input x, before its time bias.
+                           // xs[0] holds the input on entry; layer l reads xs[l] and
+                           // writes xs[l + 1] (the last layer writes `x`, a scratch).
+  bf16* a_save = nullptr;  // (L, M, 2C): every layer's pre-gate activation
 };
 
-// Launches 1 + 2L kernels on `stream`; returns cudaGetLastError().
+// Launches 1 + 2L kernels on `stream`; returns cudaGetLastError(). With the
+// saves unset this is K1 as it always was: the saves add stores, no arithmetic.
 cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream);
 
 }  // namespace drk

@@ -5,7 +5,7 @@ raises NotImplementedError naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 from .base import DiffRollConfig, DiffRollModel
-from .conditioning import apply_inpainting_mask, compute_spec, trim_to
+from .conditioning import apply_inpainting_mask, compute_spec, spec_dropout_mask, trim_to
 
 PRESETS = {
     "ClassifierFreeDiffRoll": DiffRollConfig(
@@ -75,5 +75,6 @@ __all__ = [
     "build",
     "apply_inpainting_mask",
     "compute_spec",
+    "spec_dropout_mask",
     "trim_to",
 ]

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..dsp.mel import MelConfig, MelSpectrogram
+from ..dsp.normalize import min_max_normalize
 from ..nn.denoiser import DiffRollNet
 from . import conditioning
 
@@ -90,6 +91,14 @@ class DiffRollModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.net.input_projection.weight.device
+
+    def normalize_roll(self, roll: torch.Tensor) -> torch.Tensor:
+        """Min-max the (B, T, 88) roll to the `norm_args` range; mode 'none'
+        passes rolls through raw."""
+        lo, hi, mode = self.config.norm_args
+        if mode == "none":
+            return roll
+        return min_max_normalize(roll, lo, hi, mode)
 
     def conditioner(
         self,

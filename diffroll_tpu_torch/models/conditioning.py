@@ -25,6 +25,18 @@ def compute_spec(
     return spec
 
 
+def spec_dropout_mask(batch_size: int, p: float,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> torch.Tensor:
+    """Per-sample Bernoulli(p) unconditional mask (True => drop the
+    conditioner): the classifier-free training dropout. Drawn from
+    `generator` on its device; a caller that needs given draws hands the
+    mask itself to `DiffusionTask.loss_fn`."""
+    if generator is not None:
+        device = generator.device
+    return torch.rand(batch_size, generator=generator, device=device) < p
+
+
 def apply_inpainting_mask(
     spec: torch.Tensor,
     inpainting_t: Optional[Sequence[int]] = None,

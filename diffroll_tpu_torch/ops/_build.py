@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources are the package's own `csrc/*.cu` (+ `*.cuh`). At first use
-they are compiled by nvcc for sm_90a into one shared library with a plain
-C interface, cached in `diffroll_tpu_torch/_build/` under a hash of the
-sources and flags, and loaded with ctypes. There is no fallback: a missing
+they are compiled by nvcc for sm_90a (one nvcc per source, all started
+together) and linked into one shared library with a plain C interface,
+cached in `diffroll_tpu_torch/_build/` under a hash of the sources and
+flags, and loaded with ctypes. There is no fallback: a missing
 nvcc or a failed build raises.
 """
 
@@ -23,12 +24,16 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "drk_gated_stack": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _I, _P],
+    "drk_gated_stack_fwd_saves": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "drk_gated_stack_bwd": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "drk_cond_proj": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
     "drk_head_in": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "drk_head_out": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -63,15 +68,29 @@ def build() -> pathlib.Path:
         build_seconds = 0.0
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc, tag = _nvcc(), f"{lib_path.stem}.{os.getpid()}"
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(units, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s.name, log) for s, p, log in zip(units, procs, logs) if p.returncode != 0]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", logs[-1]))
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}: {log[-4000:]}" for name, log in failed))
     os.replace(tmp, lib_path)
     return lib_path
 

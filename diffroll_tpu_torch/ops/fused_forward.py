@@ -1,7 +1,8 @@
-"""The denoiser forward with the residual stack through K1 (counterpart of
-`diffroll_tpu/ops/fused_forward.py`, inference branch).
+"""The denoiser forward with the residual stack through the kernels
+(counterpart of `diffroll_tpu/ops/fused_forward.py`): K1 for inference, and
+with `trainable=` the autograd function over the training kernels.
 
-Numerically the same as `DiffRollNet.forward` up to the kernel's bf16
+Numerically the same as `DiffRollNet.forward` up to the kernels' bf16
 products; the head and the diffusion embedding are small products in plain
 PyTorch around the stack, as the JAX package leaves them to XLA.
 """
@@ -14,8 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.embedding import lookup
+from ..nn.resblock import pointwise
 from .gated_stack import (
-    GatedStackWeights, KernelWeights, gated_stack, kernel_weights, stack_weights)
+    COND_PAD, GatedStackWeights, KernelWeights, gated_stack, kernel_weights, stack_weights)
+from .gated_stack_grad import gated_stack_trainable
 
 
 def supports_fused(model_config) -> bool:
@@ -67,6 +70,29 @@ def head_stack(x_t, t_bias, cond, w: GatedStackWeights, head: HeadWeights,
     return torch.relu(skip @ head.wskip + head.bskip) @ head.wout + head.bout
 
 
+def train_stack_weights(net, conditional: bool, cond_pad: int = COND_PAD) -> GatedStackWeights:
+    """`stack_weights` under autograd: the layers' parameters stacked with
+    `torch.stack` (its backward is one copy per layer), so the gradients
+    arrive on the `nn.Module` parameters in their reference layouts (Conv1d
+    (O, I, K), Linear (O, I)). The conditioner rows are zero-padded to
+    `cond_pad` with `F.pad`, whose backward drops the padding rows again."""
+    layers = list(net.residual_layers)
+
+    def stack(fn):
+        return torch.stack([fn(l) for l in layers])
+
+    wc = bc = None
+    if conditional:
+        wc = stack(lambda l: l.conditioner_projection.weight[:, :, 0].t())
+        wc = F.pad(wc, (0, 0, 0, max(cond_pad - wc.shape[1], 0)))
+        bc = stack(lambda l: l.conditioner_projection.bias)
+    return GatedStackWeights(
+        wd=stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0)), wc=wc,
+        wo=stack(lambda l: l.output_projection.weight[:, :, 0].t()),
+        b=stack(lambda l: l.dilated_conv.bias), bc=bc,
+        bo=stack(lambda l: l.output_projection.bias), wt=None, bt=None)
+
+
 def fused_forward(
     net,
     x_t: torch.Tensor,
@@ -77,6 +103,8 @@ def fused_forward(
     weights: Optional[GatedStackWeights] = None,
     kweights: Optional[KernelWeights] = None,
     head: Optional[HeadWeights] = None,
+    trainable: Optional[str] = None,
+    need_dcond: bool = True,
 ) -> torch.Tensor:
     """x_t (B, T, 88), t (B,), cond (B, T, M) already substituted (-1 rows
     for unconditional CFG branches) or None -> (B, T, 88).
@@ -84,7 +112,23 @@ def fused_forward(
     Pass `weights`, `kweights` (needed on CUDA) and `head` to reuse them
     across sampler steps; without `weights` all three are prepared from
     `net` for this one call.
+
+    `trainable=` an impl of `gated_stack_grad` ('plain', 'cuda', 'cuda_fwd')
+    is the training route: everything reads the module's parameters under
+    autograd, the per-layer FiLM biases and the heads in plain PyTorch, the
+    stack through `GatedStackFn`.
     """
+    if trainable is not None:
+        x = torch.relu(pointwise(x_t, net.input_projection))
+        t_emb = _embed(t, net.diffusion_embedding)
+        layers = list(net.residual_layers)
+        conditional = hasattr(layers[0], "conditioner_projection") and cond is not None
+        t_bias = torch.stack([l.diffusion_projection(t_emb) for l in layers])  # (L, B, C)
+        w = train_stack_weights(net, conditional)
+        skip = gated_stack_trainable(x, t_bias, cond if conditional else None, w,
+                                     dilations, trainable, need_dcond)
+        return pointwise(torch.relu(pointwise(skip, net.skip_projection)),
+                         net.output_projection)
     if weights is None:
         weights = stack_weights(net)
         kweights = kernel_weights(weights) if x_t.is_cuda else None

@@ -47,6 +47,30 @@ def device_timeline(trace_path) -> tuple:
     return (cur_end - spans[0][0]) / 1e3, busy / 1e3  # cur_end: the last op's end
 
 
+def device_ops(trace_path, top_gaps: int = 5) -> tuple:
+    """(by_name, gaps) of the device ops in a chrome trace. `by_name` maps an
+    op's name (cut to 80 characters) to its summed ms and its calls, largest
+    first: every kernel and copy once, whatever host-side op enclosed its
+    launch. `gaps` lists the `top_gaps` longest stretches with no op running:
+    their ms, their start in ms from the first op, and the op that ended them."""
+    events = json.loads(pathlib.Path(trace_path).read_text())["traceEvents"]
+    ops = sorted((e["ts"], e["ts"] + e["dur"], e["name"][:80]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    if not ops:
+        raise RuntimeError(f"{trace_path}: the trace holds no device op")
+    by_name, gaps, busy_until = {}, [], ops[0][0]
+    for start, end, name in ops:
+        entry = by_name.setdefault(name, {"ms": 0.0, "calls": 0})
+        entry["ms"] += (end - start) / 1e3
+        entry["calls"] += 1
+        if start > busy_until:
+            gaps.append({"ms": (start - busy_until) / 1e3,
+                         "at_ms": (busy_until - ops[0][0]) / 1e3, "before": name})
+        busy_until = max(busy_until, end)
+    gaps.sort(key=lambda g: -g["ms"])
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])), gaps[:top_gaps]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 2])

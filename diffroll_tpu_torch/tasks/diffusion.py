@@ -1,5 +1,12 @@
-"""Spec-conditioned piano-roll diffusion: the sampling half of
-`diffroll_tpu/tasks/diffusion.py`.
+"""Spec-conditioned piano-roll diffusion (counterpart of
+`diffroll_tpu/tasks/diffusion.py`): the training losses and the sampler.
+
+`DiffusionTask.loss_fn` is one training step's losses. With
+`fused_train=true` and a model family the fused op covers, the residual
+stack runs through `GatedStackFn` (ops/gated_stack_grad.py): on a CUDA
+model through the forward-with-saves and backward kernels (K3 + K4), on a
+CPU model through their plain versions. Otherwise the forward is the plain
+`nn.Module` under autograd.
 
 `DiffusionTask.sample` runs the whole reverse process. With tensors on a
 CUDA device and a model family the kernels cover, it dispatches to the
@@ -15,15 +22,17 @@ guided sampler, cfdg_ddim_x0 included, conditions on spec := -1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..diffusion.forward import extract_x0, q_sample
 from ..diffusion.loop import previous_timesteps, sample_loop, timestep_subsequence
 from ..diffusion.samplers import SAMPLER_TABLE, cfg_mix
 from ..diffusion.schedule import Schedule, linear_schedule
 from ..models.base import DiffRollModel
+from ..models.conditioning import spec_dropout_mask
 from ..ops.fused_forward import (
     _embed,
     fused_forward,
@@ -32,13 +41,12 @@ from ..ops.fused_forward import (
 )
 from ..ops.gated_stack import kernel_weights, stack_weights
 from ..ops.sampler_kernel import fused_sample, sampler_tables
+from .losses import p_losses
 
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """Same fields and defaults as `diffroll_tpu.tasks.diffusion.TaskConfig`.
-    The training fields are carried as data (checkpoints record them); the
-    port's training half is a later slice."""
+    """Same fields and defaults as `diffroll_tpu.tasks.diffusion.TaskConfig`."""
 
     timesteps: int = 200
     sampling_steps: Optional[int] = None
@@ -60,6 +68,8 @@ class TaskConfig:
     # the whole-process sampler; None = auto (CUDA tensors, a supported
     # model family, no trajectory requested, use_fused not False)
     use_megakernel: Optional[bool] = None
+    # training through the autograd function over the fused stack
+    # (ops/gated_stack_grad.py). Opt-in, as in the JAX package; None = off.
     fused_train: Optional[bool] = None
 
     def replace(self, **kw) -> "TaskConfig":
@@ -89,6 +99,118 @@ class DiffusionTask:
             kw = kernel_weights(w) if dev.type == "cuda" else None
             self._fused = (dev, w, head_weights(net), kw)
         return self._fused[1:]
+
+    # ------------------------------------------------------------- training
+
+    def _conditioner(self, batch: Dict[str, torch.Tensor], roll: torch.Tensor):
+        if self.config.debug or self.model.config.cond_source == "roll":
+            return roll
+        return self.model.conditioner(
+            waveform=batch["audio"],
+            inpainting_t=self.config.inpainting_t,
+            inpainting_f=self.config.inpainting_f)
+
+    def _forward_train(self, x_t, t, cond, uncond_mask, impl=None):
+        """The training-loss forward. The fused route applies the 'fixed'
+        unconditional substitution (spec := -1 on dropped rows) to the raw
+        conditioner, as `DiffRollNet.cond_projections` does. `impl` names its
+        route (an impl of ops/gated_stack_grad.py); None = 'cuda' (both
+        kernels) for CUDA tensors, 'plain' for CPU ones."""
+        mc = self.model.config
+        if not (self.config.fused_train and supports_fused(mc)):
+            return self.model.apply(x_t, t, cond, uncond_mask)
+        c = cond
+        if c is not None:
+            if uncond_mask is not None:
+                c = torch.where(uncond_mask[:, None, None], torch.full_like(c, -1.0), c)
+            # the conditioner is derived from data (the mel front end has no
+            # parameters), so its gradient is never used
+            c = c.detach()
+        if not torch.is_grad_enabled():
+            # validation: no backward follows, so the inference forward (K1 on
+            # a CUDA model) serves, with operands prepared for this one call
+            return fused_forward(self.model.net, x_t, t, c, dilations=mc.dilations())
+        return fused_forward(self.model.net, x_t, t, c, dilations=mc.dilations(),
+                             trainable=impl or ("cuda" if x_t.is_cuda else "plain"),
+                             need_dcond=False)
+
+    def loss_fn(
+        self,
+        batch: Any,
+        generator: Optional[torch.Generator] = None,
+        train: bool = True,
+        *,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        uncond_mask: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None,
+    ) -> Tuple[torch.Tensor, Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+        """One step's total loss + (losses dict, tensors dict).
+
+        `batch` is {'frame': (B, 640, 88), 'audio': (B, L)} on the model's
+        device, or a pair of such dicts for the dual-dataset recipe. The
+        timesteps, the noise and the spec-dropout mask are drawn from
+        `generator` (on the model's device) unless given. `impl` picks the
+        route of `fused_train` (see `_forward_train`); the default is both
+        kernels on a CUDA model.
+        """
+        cfg = self.config
+        if train:
+            self._fused = None  # the sampler's prepared weights go stale as training moves on
+        dual = isinstance(batch, (tuple, list))
+        b1 = batch[0] if dual else batch
+
+        roll = self.model.normalize_roll(b1["frame"])
+        bsz, dev = roll.shape[0], roll.device
+        if t is None:
+            t = torch.randint(0, cfg.timesteps, (bsz,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(roll.shape, generator=generator, device=dev, dtype=roll.dtype)
+        x_t = q_sample(roll, t, self.schedule, noise)
+
+        cond = self._conditioner(b1, roll)
+        p = self.model.config.spec_dropout
+        if train and p > 0 and cond is not None:
+            if uncond_mask is None:
+                uncond_mask = spec_dropout_mask(bsz, p, generator, dev)
+        else:
+            uncond_mask = None
+
+        pred = self._forward_train(x_t, t, cond, uncond_mask, impl)
+
+        losses: Dict[str, torch.Tensor] = {}
+        if cfg.training_mode == "epsilon":
+            losses["diffusion_loss"] = p_losses(noise, pred, cfg.loss_type)
+            pred_roll = extract_x0(x_t, pred, t, self.schedule)
+        elif cfg.training_mode == "x_0":
+            losses["diffusion_loss"] = p_losses(roll, pred, cfg.loss_type)
+            pred_roll = pred
+        elif cfg.training_mode == "ex_0":
+            pred_roll = extract_x0(x_t, pred, t, self.schedule)
+            losses["diffusion_loss"] = p_losses(roll, pred_roll, cfg.loss_type)
+        else:
+            raise ValueError(f"training mode {cfg.training_mode!r} not supported")
+
+        tensors = {"pred_roll": pred_roll, "label_roll": roll, "spec": cond}
+
+        if dual:
+            # the second dataset trains the unconditional branch: same t and
+            # noise, spec forced unconditional
+            b2 = batch[1]
+            roll2 = self.model.normalize_roll(b2["frame"])
+            x_t2 = q_sample(roll2, t, self.schedule, noise)
+            cond2 = self._conditioner(b2, roll2)
+            all_uncond = torch.ones(bsz, dtype=torch.bool, device=dev)
+            pred2 = self._forward_train(x_t2, t, cond2, all_uncond, impl)
+            losses["unconditional_diffusion_loss"] = p_losses(roll2, pred2, cfg.loss_type)
+            tensors.update({"pred_roll2": pred2, "label_roll2": roll2, "spec2": cond2})
+
+        # validation batches of a dual-dataset run are single-dataset: sum
+        # only the loss keys that were produced
+        total = sum(losses[k] for k in cfg.loss_keys if k in losses)
+        return total, (losses, tensors)
+
+    # ------------------------------------------------------------- sampling
 
     def build_conditioner(
         self,

@@ -73,7 +73,7 @@ def transcribe_long(
     mc = task.model.config
     device = task.model.device
     if sample_rate != mc.mel.sample_rate:
-        from diffroll_tpu import native
+        from .. import native
 
         audio = native.resample(np.asarray(audio, np.float32), sample_rate,
                                 mc.mel.sample_rate)

@@ -84,7 +84,11 @@ def test_cli_usage_and_errors(tmp_path):
     from diffroll_tpu_torch.cli import transcribe
 
     assert entry._dispatch(["--help"]) == 0
-    assert entry._dispatch(["train"]) == 2
+    assert entry._dispatch(["distill"]) == 2  # a verb that is not ported: usage, code 2
+    if not torch.cuda.is_available():
+        # the entry points run on the card unless the caller asks for the CPU
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            entry._dispatch(["train"])
     with pytest.raises(SystemExit, match="pretrained_path"):
         transcribe.main(["device=cpu"])
     with pytest.raises(SystemExit, match="no \\*.wav files"):
@@ -96,17 +100,21 @@ def test_cli_usage_and_errors(tmp_path):
 def test_profile_idle_share_reads_the_device_timeline(tmp_path):
     """The profiler's idle share: overlapping device ops count once, host
     events are ignored, and a gap between ops counts as idle."""
-    from diffroll_tpu_torch.profile_sampler import device_timeline
+    from diffroll_tpu_torch.profile_sampler import device_ops, device_timeline
 
     trace = tmp_path / "trace.json"
     trace.write_text(json.dumps({"traceEvents": [
-        {"ph": "X", "cat": "kernel", "ts": 1000.0, "dur": 400.0},
-        {"ph": "X", "cat": "gpu_memcpy", "ts": 1200.0, "dur": 300.0},  # overlaps
-        {"ph": "X", "cat": "cpu_op", "ts": 0.0, "dur": 9000.0},        # host
-        {"ph": "X", "cat": "kernel", "ts": 2000.0, "dur": 500.0},      # after a gap
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 1000.0, "dur": 400.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "copy", "ts": 1200.0, "dur": 300.0},  # overlaps
+        {"ph": "X", "cat": "cpu_op", "name": "host", "ts": 0.0, "dur": 9000.0},        # host
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 2000.0, "dur": 500.0},  # after a gap
     ]}))
     span_ms, busy_ms = device_timeline(trace)
     assert span_ms == pytest.approx(1.5) and busy_ms == pytest.approx(1.0)
+    by_name, gaps = device_ops(trace)
+    assert list(by_name) == ["a", "copy"]  # largest first; the host op is not there
+    assert by_name["a"] == {"ms": pytest.approx(0.9), "calls": 2}
+    assert gaps == [{"ms": pytest.approx(0.5), "at_ms": pytest.approx(0.5), "before": "a"}]
     trace.write_text(json.dumps({"traceEvents": [{"ph": "X", "cat": "cpu_op", "ts": 0, "dur": 1}]}))
     with pytest.raises(RuntimeError, match="no device op"):
         device_timeline(trace)

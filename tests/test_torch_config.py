@@ -10,14 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from diffroll_tpu import config as jconfig
 from diffroll_tpu import models as jmodels
 from diffroll_tpu.config import overrides as joverrides
+from diffroll_tpu.config.experiment import asdict_flat as j_asdict_flat
 from diffroll_tpu.diffusion import loop as jloop
 from diffroll_tpu.diffusion import schedule as jschedule
 from diffroll_tpu.diffusion.samplers import SAMPLER_TABLE as J_SAMPLERS
 from diffroll_tpu.dsp.mel import MelConfig as JMelConfig
 from diffroll_tpu.ops.sampler_kernel import sampler_tables as j_tables
 from diffroll_tpu.tasks.diffusion import TaskConfig as JTaskConfig
+from diffroll_tpu_torch import config as tconfig
 from diffroll_tpu_torch import models as tmodels
 from diffroll_tpu_torch.config import overrides as toverrides
 from diffroll_tpu_torch.diffusion import loop as tloop
@@ -30,8 +33,11 @@ from diffroll_tpu_torch.tasks.diffusion import TaskConfig as TTaskConfig
 torch.set_num_threads(1)
 
 
-def _assert_same_fields(j, t):
-    jf = [f.name for f in dataclasses.fields(j)]
+def _assert_same_fields(j, t, left_out=()):
+    """Same fields in the same order with the same values; `left_out` names
+    the JAX fields the port does not carry yet."""
+    jf = [f.name for f in dataclasses.fields(j) if f.name not in left_out]
+    assert set(left_out) <= {f.name for f in dataclasses.fields(j)}
     assert jf == [f.name for f in dataclasses.fields(t)]
     for name in jf:
         jv, tv = getattr(j, name), getattr(t, name)
@@ -130,13 +136,17 @@ def test_apply_overrides_over_port_configs():
 
 
 def test_port_imports_no_jax():
+    # both names are blocked, so an import of either anywhere in the port raises
     code = (
         "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['diffroll_tpu'] = None\n"
         "import diffroll_tpu_torch\n"
         "for m in pkgutil.walk_packages(diffroll_tpu_torch.__path__, 'diffroll_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import diffroll_tpu_torch.__main__\n"
-        "bad = [k for k in ('jax', 'flax', 'optax') if k in sys.modules]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'optax',"
+        " 'diffroll_tpu') and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"
         "print('ok', len(list(pkgutil.walk_packages(diffroll_tpu_torch.__path__))))\n"
     )
@@ -144,6 +154,79 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+# The trainer fields of the JAX package that the port leaves out (the mesh
+# axes, the jax.random implementation and the bf16 Adam moments).
+TRAINER_LEFT_OUT = ("model_axis", "data_axis", "rng_impl", "adam_moments_dtype")
+# The packed host-to-device batch formats are not ported: batches cross as float32.
+DATALOADER_LEFT_OUT = ("transfer",)
+# Root fields of slices that are not ported yet; `device` is the port's own.
+ROOT_LEFT_OUT = ("task_type", "baseline", "serve", "distill", "num_samples", "audio_format")
+
+
+@pytest.mark.parametrize("group,left_out", [
+    ("DatasetConfig", ()), ("DataloaderConfig", DATALOADER_LEFT_OUT),
+    ("TrainerConfig", TRAINER_LEFT_OUT)])
+def test_config_groups_match(group, left_out):
+    _assert_same_fields(getattr(jconfig, group)(), getattr(tconfig, group)(), left_out)
+    if group == "DatasetConfig":
+        assert tconfig.DatasetConfig().audio_ext == "wav"
+
+
+def _assert_same_experiment(j, t):
+    jf = [f.name for f in dataclasses.fields(j) if f.name not in ROOT_LEFT_OUT]
+    tf = [f.name for f in dataclasses.fields(t) if f.name != "device"]
+    assert jf == tf
+    assert j.model_name == t.model_name and j.pretrained_path == t.pretrained_path
+    assert j.dual == t.dual and t.device == "cuda"
+    _assert_same_fields(j.model, t.model)
+    _assert_same_fields(j.task, t.task)
+    _assert_same_fields(j.dataset, t.dataset)
+    _assert_same_fields(j.dataloader, t.dataloader, DATALOADER_LEFT_OUT)
+    _assert_same_fields(j.trainer, t.trainer, TRAINER_LEFT_OUT)
+    assert (j.dataset2 is None) == (t.dataset2 is None)
+    if j.dataset2 is not None:
+        _assert_same_fields(j.dataset2, t.dataset2)
+    assert j.describe() == t.describe()
+
+
+def test_experiment_defaults_match():
+    _assert_same_experiment(jconfig.ExperimentConfig(), tconfig.ExperimentConfig())
+
+
+@pytest.mark.parametrize("name", sorted(tconfig.PRESETS))
+def test_experiment_presets_match(name):
+    # every preset of the JAX package but the baseline task's is there
+    assert sorted(tconfig.PRESETS) == sorted(set(jconfig.PRESETS) - {"baseline"})
+    _assert_same_experiment(jconfig.PRESETS[name], tconfig.PRESETS[name])
+    # the transcription preset reads mp3 folders; the dataset default is wav
+    assert tconfig.PRESETS["sampling"].dataset.audio_ext == "mp3"
+
+
+@pytest.mark.parametrize("argv", [
+    ["spec_roll", "model.kernel_size=9", "task.timesteps=50", "trainer.max_epochs=3"],
+    ["unsupervised_pretrained", "dataset.root=/data", "trainer.ema_decay=0.999"],
+    ["dual", "dataset2.name=MAESTRO", "dataset2.sequence_length=4096", "dual=true"],
+    ["task.fused_train=true", "dataloader.train_batch_size=4", "pretrained_path=a.ckpt"],
+    ["sampling", "dataset.audio_ext=wav", "task.w=0.3", "model_name=DiffRoll"],
+])
+def test_from_argv_matches(argv):
+    jc, jrest, jover = jconfig.from_argv(argv, "spec_roll")
+    tc, trest, tover = tconfig.from_argv(argv, "spec_roll")
+    assert jrest == trest and jover == tover
+    _assert_same_experiment(jc, tc)
+    assert tc.model.timesteps == tc.task.timesteps
+    jflat, tflat = j_asdict_flat(jc), tconfig.asdict_flat(tc)
+    shared = [k for k in tflat if k in jflat and k != "model.dtype"]
+    assert len(shared) > 60 and all(jflat[k] == tflat[k] for k in shared)
+
+
+def test_compose_rejects_unknown_names():
+    with pytest.raises(KeyError, match="unknown config"):
+        tconfig.compose("baseline")
+    with pytest.raises(KeyError):
+        tconfig.compose("spec_roll", {"trainer.model_axis": "2"})
 
 
 def test_schedule_tables_are_float32():

@@ -22,6 +22,8 @@ from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
 
 # the module (the package re-exports a function of the same name)
 tgs = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
+tgt = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
+tgg = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_grad")
 
 BF16_GATE = 0.05
 STEPS = 12
@@ -97,3 +99,96 @@ def test_sampler_kernels_match_plain(cuda_f32, name, steps, w, route):
         x_T, waveform=wav, noise=noise)[0]
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and _rel(out, plain) < BF16_GATE
+
+
+def _train_case(dev, shape):
+    b, t, c, layers, with_cond = shape
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=c, residual_layers=layers,
+                       frames=t).to(dev)
+    w = tgs.stack_weights(tm.net)
+    kw = tgs.kernel_weights(w)
+    # the plain versions run on the kernels' own weight values
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    x = torch.randn(b, t, c, device=dev)
+    tb = 0.1 * torch.randn(layers, b, c, device=dev)
+    cond = torch.rand(b, t, 229, device=dev) if with_cond else None
+    cot = torch.randn(b, t, c, device=dev)
+    return tm.config.dilations(), w, wq, kw, x, tb, cond, cot
+
+
+TRAIN_SHAPES = [(2, 64, 128, 3, True), (3, 100, 128, 4, True), (1, 640, 512, 15, True),
+                (2, 8, 128, 4, True), (2, 64, 128, 3, False)]
+TRAIN_IDS = ["small", "ragged_T", "flagship_b1", "taps_leave_clip", "nocond"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_fwd_saves_kernel_matches_plain(cuda_f32, shape):
+    """K3: skip, xs and a against the plain forward-with-saves, and the skip
+    output bit-for-bit against K1 (the saves add stores, no arithmetic)."""
+    dil, w, wq, kw, x, tb, cond, _ = _train_case(cuda_f32, shape)
+    before = tgt.fwd_saves.launches
+    with torch.no_grad():
+        skip, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        skip_r, xs_r, a_r = tgt.fwd_saves_ref(x, tb, cond, wq, dil)
+        k1 = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+    torch.cuda.synchronize()
+    assert tgt.fwd_saves.launches == before + 1
+    assert xs.dtype == a.dtype == torch.bfloat16
+    assert torch.equal(skip, k1)
+    for out, ref in ((skip, skip_r), (xs.float(), xs_r), (a.float(), a_r)):
+        assert _rel(out, ref) < BF16_GATE
+    with pytest.raises(ValueError, match="kweights"):
+        tgt.fwd_saves(x, tb, cond, w, dil)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dcond", [True, False], ids=["dcond", "nodcond"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_bwd_kernel_matches_plain(cuda_f32, shape, need_dcond):
+    """K4 against the plain backward from the same (kernel-made) saves."""
+    dil, w, wq, kw, x, tb, cond, cot = _train_case(cuda_f32, shape)
+    with torch.no_grad():
+        _, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        before = tgt.bwd.launches
+        out = tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw)
+        again = tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw)
+        ref = tgt.bwd_ref(dil, (tb, cond, wq, xs, a), cot, need_dcond)
+    torch.cuda.synchronize()
+    assert tgt.bwd.launches == before + 2
+    assert (out[2] is None) == (cond is None or not need_dcond)
+
+    def leaves(o):
+        dx, dtb, dcond, dw = o
+        named = {"dx": dx, "dtb": dtb, "dcond": dcond}
+        named.update({f"d{k}": v for k, v in dw._asdict().items()})
+        return {k: v for k, v in named.items() if v is not None}
+
+    got, want, rerun = leaves(out), leaves(ref), leaves(again)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        assert _rel(got[name], want[name]) < BF16_GATE, name
+        assert torch.equal(got[name], rerun[name]), name  # fixed summation order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "cuda_fwd"])
+def test_gated_stack_fn_routes(cuda_f32, impl):
+    """GatedStackFn on CUDA tensors: the kernel routes launch their kernels
+    and agree with the plain route's gradients."""
+    dil, w, wq, _, x, tb, cond, cot = _train_case(cuda_f32, (2, 64, 128, 3, True))
+
+    def grads(weights, route):
+        leaves = [t.clone().requires_grad_() for t in (x, tb, *weights[:6])]
+        ws = tgs.GatedStackWeights(*leaves[2:], None, None)
+        out = tgg.gated_stack_trainable(leaves[0], leaves[1], cond, ws, dil, route, False)
+        return torch.autograd.grad((out * cot).sum(), leaves)
+
+    before = (tgt.fwd_saves.launches, tgt.bwd.launches)
+    got = grads(w, impl)
+    launched = (tgt.fwd_saves.launches - before[0], tgt.bwd.launches - before[1])
+    assert launched == ((1, 1) if impl == "cuda" else (1, 0))
+    for g, r in zip(got, grads(wq, "plain")):
+        assert _rel(g, r) < BF16_GATE
