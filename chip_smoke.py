@@ -12,11 +12,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                 16 kHz wav (two 640-frame windows, 200-step cfdg_ddpm_x0,
                 w=0.5); launch counters reset just before, read just after
   5. k1         the gated-stack kernel vs its plain version at the flagship
-                shape: max|d| / max|ref| < 0.05
+                shape: max|d| / max|ref| < 0.05; a second run gives the same bits
   6. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
-                rel < 0.05; the step-loop route (use_megakernel=False, K1
-                per step) against the same plain trajectory
+                rel < 0.05; a second run gives the same bits; the step-loop
+                route (use_megakernel=False, K1 per step) against the same
+                plain trajectory
      Both gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
      beside them: the error against the unrounded f32 weights, and the plain
@@ -42,7 +43,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                 (K2 at B=1 and B=2; the summary line gives B=2), and of a whole
                 training step at B=16 by three routes: K3 + K4, K3 + the plain
                 backward, autograd through the nn.Modules (f32; and once more
-                with TF32 products allowed)
+                with TF32 products allowed); under `gemm`, the stack's two GEMM
+                kernels alone at M = 1,280 and M = 2,560 rows (us per call,
+                TFLOP/s, tiles and waves) with, as a yardstick only, one bf16
+                `torch.matmul` of the same (M, K) x (K, 2C) shapes
+                (`gemm_yardstick_ms`: it computes neither the taps nor the
+                epilogues, and the port never calls it)
 The two lines before the last are the kernel summary (JSON) and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}. Each
 kernel's `bound_ms` is the larger of its operations over the card's published
@@ -53,6 +59,7 @@ PyTorch call computes any of the four functions.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import pathlib
@@ -207,6 +214,8 @@ def main() -> int:
     from diffroll_tpu_torch.ops.fused_forward import _embed
     from diffroll_tpu_torch.ops.gated_stack import (
         gated_stack, gated_stack_ref, kernel_weights, stack_weights)
+    from diffroll_tpu_torch.profile_gemm import gemm_times
+    gs_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
     from diffroll_tpu_torch.ops.sampler_kernel import (
         fused_sample, fused_sample_ref, head_weights, sampler_tables)
@@ -364,14 +373,17 @@ def main() -> int:
         tb = 0.1 * torch.randn(mc.residual_layers, b, c, device=dev, generator=gen)
         k1_ref = gated_stack_ref(x, tb, cond, wq, dil)
         k1_out = gated_stack(x, tb, cond, w, dil, kweights=kw)
+        k1_same_bits = torch.equal(k1_out, gated_stack(x, tb, cond, w, dil, kweights=kw))
         torch.cuda.synchronize()
         k1_rel, k1_abs = rel_err(k1_out, k1_ref)
         k1_ref32 = gated_stack_ref(x, tb, cond, w, dil)
         phase("k1", shape=[b, t_len, c], rel=k1_rel, max_abs_err=k1_abs,
+              same_bits_on_rerun=k1_same_bits,
               rel_f32_weights=rel_err(k1_out, k1_ref32)[0],
               ref_rounding_rel=rel_err(k1_ref, k1_ref32)[0])
-        if not k1_rel < GATE:
-            raise RuntimeError(f"K1 disagrees with its plain version: rel {k1_rel}")
+        if not (k1_rel < GATE and k1_same_bits):
+            raise RuntimeError(f"K1 disagrees with its plain version (rel {k1_rel}) or with "
+                               f"itself on a second run (same bits: {k1_same_bits})")
 
         task = DiffusionTask(model, TaskConfig(timesteps=mc.timesteps, w=W_GUIDANCE))
         ts = timestep_subsequence(mc.timesteps, None)
@@ -393,21 +405,24 @@ def main() -> int:
             ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
             ref32 = fused_sample_ref(*args)
             out = fused_sample(*args, kweights=kw)
+            same_bits = torch.equal(out, fused_sample(*args, kweights=kw))
             scan = DiffusionTask(model, task.config.replace(use_megakernel=False)).sample(
                 x_T, waveform=wav, noise=noise)[0]
             torch.cuda.synchronize()
             rel, abs_err = rel_err(out, ref)
             scan_rel, scan_abs = rel_err(scan, ref)
             phase("k2", batch=bk, steps=len(ts), rel=rel, max_abs_err=abs_err,
+                  same_bits_on_rerun=same_bits,
                   scan_rel=scan_rel, scan_max_abs_err=scan_abs,
                   rel_f32_weights=rel_err(out, ref32)[0],
                   scan_rel_f32_weights=rel_err(scan, ref32)[0],
                   # the plain version against itself: bf16-rounded vs f32 weights
                   ref_rounding_rel=rel_err(ref, ref32)[0],
                   finite=bool(torch.isfinite(out).all()))
-            if not (rel < GATE and scan_rel < GATE and torch.isfinite(out).all()):
+            if not (rel < GATE and scan_rel < GATE and torch.isfinite(out).all() and same_bits):
                 raise RuntimeError(f"K2 / the step loop disagree with the plain trajectory "
-                                   f"at B={bk}: rel {rel}, scan rel {scan_rel}")
+                                   f"at B={bk}: rel {rel}, scan rel {scan_rel}, same bits on "
+                                   f"a second run: {same_bits}")
             k2_abs = max(k2_abs, abs_err)
             k2_args[bk] = args
 
@@ -510,7 +525,14 @@ def main() -> int:
         for bk, args in k2_args.items():
             times[f"k2_b{bk}_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 3)
             times[f"k2_b{bk}_plain_ms"] = time_ms(lambda: fused_sample_ref(*args), 3)
-        phase("times", card=card, **times)
+        # the stack's two GEMM kernels alone, M = 1,280 (one clip's two
+        # guidance streams) and M = 2,560 rows, beside a matmul yardstick
+        gemm = {}
+        for seqs in (2, 4):
+            xg = torch.randn(seqs, t_len, c, device=dev, generator=gen)
+            tbg = 0.1 * torch.randn(mc.residual_layers, seqs, c, device=dev, generator=gen)
+            gemm[f"m{seqs * t_len}"] = gemm_times(gs_module, xg, tbg, w, kw, dil)
+        phase("times", card=card, **times, gemm=gemm)
 
     # ---- bounds, from this run's inputs: each input read once, each output
     # written once, against the products each function does

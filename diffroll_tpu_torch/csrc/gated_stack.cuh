@@ -15,6 +15,7 @@
 // copy itself. The result is left in shared memory as f32.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -209,6 +210,7 @@ struct StackArgs {
   const float* bo;       // (L, 2C)
   const int* dil;        // host array, L dilations
   int L, M, T, C, taps;
+  int parts = 3;           // bit 0: the gate GEMMs, bit 1: the output GEMMs (timing launches one alone)
   // The training forward's saves (gated_stack_train.cu), both or neither:
   bf16* xs = nullptr;      // (L, M, C): every layer's input x, before its time bias.
                            // xs[0] holds the input on entry; layer l reads xs[l] and
@@ -216,8 +218,24 @@ struct StackArgs {
   bf16* a_save = nullptr;  // (L, M, 2C): every layer's pre-gate activation
 };
 
-// Launches 1 + 2L kernels on `stream`; returns cudaGetLastError(). With the
-// saves unset this is K1 as it always was: the saves add stores, no arithmetic.
+// A pass prepared once for its buffers and shape: the tile list's size, the persistent grid and the tensor maps of y, g, the
+// conditioner and the two weight stacks. A caller that runs the same pass
+// many times (the sampler: once per step) builds it once.
+struct StackPlan {
+  StackArgs a;
+  CUtensorMap map_y, map_g, map_cond, map_wcat, map_wo;
+  int tiles_per_seq, ntiles, grid;
+};
+cudaError_t plan_stack(const StackArgs& a, StackPlan* plan);
+// Launches 1 + 2L kernels on `stream` with the time bias `tb` (in place of
+// plan.a.tb) or, with the device counter `step` set, tb + *step * tb_ss, read
+// when the kernels run: a captured pass can then be replayed for step after
+// step. Returns cudaGetLastError().
+cudaError_t run_stack(const StackPlan& plan, const float* tb, const int* step, int tb_ss,
+                      cudaStream_t stream);
+
+// plan_stack + run_stack. With the saves unset this is K1 as it always was:
+// the saves add stores, no arithmetic.
 cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream);
 
 }  // namespace drk

@@ -29,14 +29,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "drk_gated_stack": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _P],
+                        _P, _I, _I, _I, _I, _I, _I, _P],
     "drk_gated_stack_fwd_saves": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "drk_gated_stack_bwd": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "drk_cond_proj": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
-    "drk_head_in": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "drk_head_out": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "drk_sample_run": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
+                       _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -79,7 +79,8 @@ def build() -> pathlib.Path:
     failed = [(s.name, log) for s, p, log in zip(units, procs, logs) if p.returncode != 0]
     tmp = BUILD_DIR / f"{tag}.tmp"
     if not failed:
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]],
+        # -ldl: the tensor-map encoder is looked up in the loaded libcuda (dlsym)
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs], "-ldl"],
                               capture_output=True, text=True)
         logs.append(link.stdout + link.stderr)
         if link.returncode != 0:

@@ -9,16 +9,20 @@ Layer math (x (B, T, C), t_bias (L, B, C), cond (B, T, M) or None):
     x    = (x + out[..., :C]) / sqrt(2);  skip += out[..., C:]
 output = skip / sqrt(L)
 
-`gated_stack` launches the CUDA kernel (csrc/gated_stack.cu: bf16 operands,
-f32 accumulation) for CUDA tensors and runs `gated_stack_ref`, the plain f32
-PyTorch version, for CPU tensors.
+`gated_stack` launches the CUDA kernel (csrc/gated_stack.cu: bf16 operands
+brought in by TMA, wgmma products, f32 accumulation) for CUDA tensors and
+runs `gated_stack_ref`, the plain f32 PyTorch version, for CPU tensors.
+
+The kernel's tile list is laid out here as the kernel walks it
+(`stack_tiles`, `tap_frames`, `tile_waves`): a tile is BM frames of one
+sequence x one pair of BN-column slices (n, C + n).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +30,14 @@ import torch.nn.functional as F
 from . import _build
 
 SQRT_HALF = 0.7071067811865476
-BN = 64          # the kernel's column tile: C must be a multiple
-COND_PAD = 256   # conditioner lanes, zero-padded (229 is not a multiple of 16)
+BK = 64          # the kernel's k tile (one 128-byte swizzle row of bf16): C and the
+                 # padded conditioner width must be multiples
+COND_PAD = 256   # conditioner lanes, zero-padded (229 is not a multiple of 64)
+SMS = 132        # streaming multiprocessors of an H100
+BM = 128         # frames per tile (two consumer warpgroups of 64 rows)
+BN = 64          # columns per half of a tile's column pair
+# timing only: 1 launches the gate GEMMs alone, 2 the output GEMMs alone (the result is void)
+PARTS = 3
 
 
 class GatedStackWeights(NamedTuple):
@@ -160,14 +170,36 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> int
 
 def check_kernel_shapes(kw: KernelWeights, c: int, n_layers: int, device) -> None:
     """Raise unless the kernel takes these weights as they are."""
-    if c % BN or kw.mp % 32:
-        raise ValueError(f"the CUDA stack needs C % {BN} == 0 and a conditioner "
-                         f"width padded to a multiple of 32 (C={c}, M={kw.mp})")
+    if c % BK or kw.mp % BK:
+        raise ValueError(f"the CUDA stack needs C % {BK} == 0 and a conditioner "
+                         f"width padded to a multiple of {BK} (C={c}, M={kw.mp})")
     two_c = 2 * c
     _check(kw.wcat, "wcat", torch.bfloat16, (n_layers, kw.taps * c + kw.mp, two_c), device)
     _check(kw.wo, "wo", torch.bfloat16, (n_layers, c, two_c), device)
     for name in ("b", "b_eff", "bo"):
         _check(getattr(kw, name), name, torch.float32, (n_layers, two_c), device)
+
+
+def stack_tiles(seqs: int, t_len: int) -> List[Tuple[int, int]]:
+    """The row tiles of one pass, in the kernel's order: (sequence, first
+    frame). A tile never crosses a sequence; the last one of a sequence may
+    hold fewer than BM frames."""
+    return [(b, t0) for b in range(seqs) for t0 in range(0, t_len, BM)]
+
+
+def tap_frames(t0: int, tap: int, taps: int, dilation: int) -> range:
+    """The frames a tile's A box covers for tap `tap`: BM frames from
+    t0 + (tap - taps // 2) * dilation. Those outside [0, T) of the sequence
+    are zero-filled by the copy."""
+    first = t0 + (tap - taps // 2) * dilation
+    return range(first, first + BM)
+
+
+def tile_waves(seqs: int, t_len: int, c: int) -> Tuple[int, int]:
+    """(tiles, waves): the output tiles of one GEMM launch, and the tiles the
+    busiest SM computes when they are dealt evenly over the card's SMs."""
+    tiles = len(stack_tiles(seqs, t_len)) * (c // BN)
+    return tiles, -(-tiles // SMS)
 
 
 def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
@@ -186,7 +218,8 @@ def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
         cond_ptr, kw.mp, kw.wcat.data_ptr(), kw.wcat.shape[1],
         None if colbias is None else colbias.data_ptr(), rowbias_ptr,
         kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
-        n_layers, m, t_len, c, kw.taps, torch.cuda.current_stream().cuda_stream)
+        n_layers, m, t_len, c, kw.taps, PARTS,
+        torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "gated_stack")
     gated_stack.launches += 1
 

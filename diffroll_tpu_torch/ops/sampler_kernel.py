@@ -8,12 +8,15 @@ epsilon-parameterised samplers and their final-step branches. The
 per-step FiLM biases t_bias (n, L, C) are computed by the caller.
 
 `fused_sample` launches the CUDA kernels (csrc/sampler.cu, reusing K1's
-device code) for CUDA tensors and runs `fused_sample_ref`, the plain
-PyTorch version, for CPU tensors.
+device code) for CUDA tensors, with one call into the library per reverse
+process: the step loop runs in C (`drk_sample_run`), as n replays of one
+captured step. For CPU tensors it runs `fused_sample_ref`, the plain PyTorch
+version.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,8 +31,8 @@ from .gated_stack import (
     _check,
     check_kernel_shapes,
     dilation_array,
+    gated_stack,
     gated_stack_ref,
-    launch_stack,
     pad_cond,
 )
 
@@ -188,7 +191,7 @@ def fused_sample(
 
     xbuf = torch.empty(m, c, device=dev, dtype=torch.bfloat16)
     scratch = torch.empty(2, m, c, device=dev, dtype=torch.bfloat16)
-    skip = torch.empty(m, c, device=dev, dtype=torch.float32)
+    skip = torch.empty(2, m, c, device=dev, dtype=torch.float32)  # skip sums, head hidden
     stream = torch.cuda.current_stream().cuda_stream
     if conditional:
         cond_p = pad_cond(_streams(cond.float(), guided), kw.mp).to(torch.bfloat16)
@@ -199,20 +202,20 @@ def fused_sample(
             cond_p.data_ptr(), kw.mp, kw.wcat.data_ptr(), kw.wcat.shape[1],
             kw.taps * c, kw.b_eff.data_ptr(), hoisted.data_ptr(), n_layers, m, c,
             stream), "cond_proj")
-        rowbias_ptr, colbias = hoisted.data_ptr(), None
+        rowbias_ptr, colbias_ptr = hoisted.data_ptr(), None
     else:
-        rowbias_ptr, colbias = None, kw.b
+        rowbias_ptr, colbias_ptr = None, kw.b.data_ptr()
     dil = dilation_array(dilations)
-    tb_step = n_layers * c * tb.element_size()
-    for s in range(n):
-        _build.check(lib.drk_head_in(x.data_ptr(), win, bin_, xbuf.data_ptr(), rows,
-                                     n_out, c, streams, stream), "head_in")
-        launch_stack(xbuf, skip, scratch, tb_ptr + s * tb_step, c, 0, None, colbias,
-                     rowbias_ptr, kw, dil, t_len)
-        _build.check(lib.drk_head_out(
-            skip.data_ptr(), wskip, bskip, wout, bout, x.data_ptr(), noise_ptr,
-            tab.data_ptr(), s, rows, n_out, c, streams, float(w_guidance), stream),
-            "head_out")
+    passes = ctypes.c_int(0)
+    step = torch.empty(1, device=dev, dtype=torch.int32)  # the device's step counter
+    _build.check(lib.drk_sample_run(
+        x.data_ptr(), noise_ptr, tab.data_ptr(), n, tb_ptr, win, bin_, wskip, bskip, wout,
+        bout, float(w_guidance), xbuf.data_ptr(), skip[0].data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), skip[1].data_ptr(), kw.wcat.data_ptr(), kw.wcat.shape[1],
+        colbias_ptr, rowbias_ptr, kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
+        n_layers, rows, t_len, n_out, c, streams, kw.taps, step.data_ptr(), stream,
+        ctypes.addressof(passes)), "sample_run")
+    gated_stack.launches += passes.value
     fused_sample.launches += 1
     return x
 

@@ -17,7 +17,10 @@ import pytest
 import torch
 
 from diffroll_tpu_torch import models as tmodels
-from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
+from diffroll_tpu_torch.diffusion.loop import previous_timesteps, timestep_subsequence
+from diffroll_tpu_torch.ops.fused_forward import _embed
+from diffroll_tpu_torch.ops.sampler_kernel import (
+    fused_sample, fused_sample_ref, head_weights, sampler_tables)
 from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
 
 # the module (the package re-exports a function of the same name)
@@ -47,8 +50,11 @@ def _rel(out, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3, True), (3, 100, 128, 4, True),
-                                   (2, 64, 64, 3, False), (2, 640, 512, 15, True)],
-                         ids=["small", "ragged_rows", "nocond", "flagship"])
+                                   (2, 64, 64, 3, False), (2, 640, 512, 15, True),
+                                   (2, 200, 64, 4, True), (3, 8, 64, 4, True),
+                                   (1, 130, 128, 5, False)],
+                         ids=["small", "ragged_rows", "nocond", "flagship",
+                              "last_tile_crosses_T", "dilation_reaches_T", "two_rows_in_last_tile"])
 def test_stack_kernel_matches_plain(cuda_f32, shape):
     dev = cuda_f32
     b, t, c, layers, with_cond = shape
@@ -69,6 +75,93 @@ def test_stack_kernel_matches_plain(cuda_f32, shape):
     assert _rel(out, ref) < BF16_GATE
     with pytest.raises(ValueError, match="kweights"):  # no silent per-call rebuild
         tgs.gated_stack(x, tb, cond, w, dil)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 100, 128, 4, True), (2, 640, 512, 15, True)],
+                         ids=["ragged_rows", "flagship"])
+def test_stack_kernel_same_bits_every_run(cuda_f32, shape):
+    """No atomics and a fixed tile order: two runs on the same inputs agree bit for bit."""
+    dev = cuda_f32
+    b, t, c, layers, _ = shape
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=c, residual_layers=layers,
+                       frames=t).to(dev)
+    w = tgs.stack_weights(tm.net)
+    kw = tgs.kernel_weights(w)
+    x = torch.randn(b, t, c, device=dev)
+    tb = 0.1 * torch.randn(layers, b, c, device=dev)
+    cond = torch.rand(b, t, 229, device=dev)
+    dil = tm.config.dilations()
+    with torch.no_grad():
+        first = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+        torch.randn(1 << 22, device=dev)  # other work on the stream in between
+        second = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _process_case(dev, guided, frames=64, c=64, layers=3, bsz=2):
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=c, residual_layers=layers,
+                       frames=frames, timesteps=STEPS).to(dev)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    task = DiffusionTask(tm, TaskConfig(timesteps=STEPS, w=0.5))
+    w = tgs.stack_weights(tm.net)
+    ts = timestep_subsequence(STEPS, None)
+    name = "cfdg_ddpm_x0" if guided else "ddpm_x0"
+    tables = torch.from_numpy(sampler_tables(task.schedule, name, ts,
+                                             previous_timesteps(ts))).to(dev)
+    with torch.no_grad():
+        t_emb = _embed(torch.from_numpy(ts.astype("int64")).to(dev), tm.net.diffusion_embedding)
+        t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
+    x_T = torch.randn(bsz, frames, 88, device=dev)
+    noise = torch.randn(STEPS, bsz, frames, 88, device=dev)
+    cond = torch.rand(bsz, frames, 229, device=dev)
+    return (x_T, noise, t_bias, tables, w, head_weights(tm.net), cond, tm.config.dilations(),
+            guided, 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stochastic", [True, False], ids=["noise", "no_noise"])
+@pytest.mark.parametrize("guided", [True, False], ids=["guided", "unguided"])
+def test_fused_sample_single_entry(cuda_f32, guided, stochastic):
+    """`fused_sample` called directly, n=12: one call into the library runs
+    every step (12 stack passes counted by the C entry), with and without
+    noise, against the plain process on the kernels' own weight values; and
+    a second run gives the same bits."""
+    args = list(_process_case(cuda_f32, guided))
+    if not stochastic:
+        args[1] = None
+    w = args[4]
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    kw = tgs.kernel_weights(w)
+    before = (fused_sample.launches, tgs.gated_stack.launches)
+    with torch.no_grad():
+        out = fused_sample(*args, stochastic, kweights=kw)
+        launched = (fused_sample.launches - before[0], tgs.gated_stack.launches - before[1])
+        again = fused_sample(*args, stochastic, kweights=kw)
+        ref = fused_sample_ref(*args[:4], wq, *args[5:], stochastic)
+    torch.cuda.synchronize()
+    assert launched == (1, STEPS)
+    assert torch.isfinite(out).all() and _rel(out, ref) < BF16_GATE
+    assert torch.equal(out, again)
+    with pytest.raises(ValueError, match="kweights"):
+        fused_sample(*args, stochastic)
+
+
+@pytest.mark.gpu
+def test_fused_sample_ragged_frames(cuda_f32):
+    """A clip whose frames do not fill the stack's 128-frame tile and a batch
+    whose rows do not fill the heads' 64-row tiles."""
+    args = _process_case(cuda_f32, True, frames=100, c=128, layers=4, bsz=3)
+    w = args[4]
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    with torch.no_grad():
+        out = fused_sample(*args, True, kweights=tgs.kernel_weights(w))
+        ref = fused_sample_ref(*args[:4], wq, *args[5:], True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and _rel(out, ref) < BF16_GATE
 
 
 @pytest.mark.gpu
