@@ -69,17 +69,7 @@ prep_kernel(const bf16* __restrict__ x, const float* __restrict__ tb, int tb_bs,
             const int* __restrict__ step, int tb_ss, bf16* __restrict__ y, int M, int T,
             int C) {
   if (step) tb += (size_t)*step * tb_ss;
-  const size_t n8 = (size_t)M * C / 8;
-  for (size_t i = blockIdx.x * (size_t)NT + threadIdx.x; i < n8; i += (size_t)gridDim.x * NT) {
-    const size_t e = i * 8;
-    const int m = (int)(e / C), c = (int)(e % C);
-    float v[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + e), v);
-    const float* t = tb + (size_t)(m / T) * tb_bs + c;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] += t[q];
-    *reinterpret_cast<uint4*>(y + e) = pack8(v);
-  }
+  add_time_bias(x, tb, tb_bs, y, M, T, C);
 }
 
 // One output tile of a block's walk: column pair n0, sequence, first frame.
@@ -93,34 +83,29 @@ __device__ __forceinline__ TileAt tile_at(int tile, int C, int tiles_per_seq) {
   return {(tile - rt * ncol) * G::BN, rt / tiles_per_seq, (rt % tiles_per_seq) * G::BM};
 }
 
-// The accumulator rows of a consumer thread inside its block's tile: `row`
-// and `row + 8`; its columns inside every 8-column chunk: `col`, `col + 1`.
-struct Lane {
-  int wg, row, col;
-};
-__device__ __forceinline__ Lane lane_of_thread() {
-  const int t = threadIdx.x % 128;
-  const int wg = threadIdx.x / 128;
-  return {wg, wg * 64 + (t / 32) * 16 + (t % 32) / 4, 2 * (t % 4)};
-}
+using sm90::Lane;
+using sm90::lane_of_thread;
+using sm90::store2;
 
-// sigmoid(a1) * tanh(a2) on the special-function unit: tanh.approx.f32 (one
-// instruction, error ~2^-11, below the bf16 rounding of the result) and
-// sigmoid(a) = (1 + tanh(a / 2)) / 2. expf and tanhf cost some 60
-// instructions a value, and 128 values a thread a tile ran as long as two
-// thirds of the tile's products while the tensor cores stood idle.
-__device__ __forceinline__ float tanh_fast(float a) {
-  float r;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(a));
-  return r;
-}
+// sigmoid(a1) * tanh(a2) on the special-function unit (gemm_sm90.cuh).
 __device__ __forceinline__ float gate_fast(float a1, float a2) {
-  return (0.5f * tanh_fast(0.5f * a1) + 0.5f) * tanh_fast(a2);
+  return sm90::sigmoid_fast(a1) * sm90::tanh_fast(a2);
 }
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+// The forward's B boxes: k tile kt of the column pair (n0 .. n0 + BN,
+// C + n0 .. C + n0 + BN) of layer `layer`'s (K, 2C) row-major weights.
+template <class G>
+struct pair_box {
+  const CUtensorMap* map_w;
+  int n0, C, layer;
+  __device__ __forceinline__ void operator()(int kt, int i, const CUtensorMap*& map, int& c0,
+                                             int& c1, int& c2) const {
+    map = map_w;
+    c0 = (i < G::NBOX / 2 ? n0 : C + n0 - G::BN) + i * 64;
+    c1 = kt * sm90::BK;
+    c2 = layer;
+  }
+};
 
 struct GateArgs {
   const float* colbias;  // (2C) or nullptr
@@ -151,21 +136,23 @@ gate_kernel(const __grid_constant__ CUtensorMap map_y, const __grid_constant__ C
       sm90::tma_prefetch_map(&map_w);
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
         const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
-        gemm.produce(&map_w, p.layer, at.n0, p.C, at.seq, nk,
-                     [&](int kt, const CUtensorMap*& map, int& c0, int& c1) {
-                       const int k0 = kt * sm90::BK;
-                       if (k0 < kc) {  // tap j: the frames (j - taps/2) * dil away
-                         const int j = k0 / p.C;
-                         map = &map_y;
-                         c0 = k0 - j * p.C;
-                         c1 = at.t0 + (j - p.taps / 2) * p.dil;
-                       } else {
-                         map = &map_cond;
-                         c0 = k0 - kc;
-                         c1 = at.t0;
-                       }
-                     },
-                     it);
+        gemm.produce(
+            nk,
+            [&](int kt, int, const CUtensorMap*& map, int& c0, int& c1, int& c2) {
+              const int k0 = kt * sm90::BK;
+              if (k0 < kc) {  // tap j: the frames (j - taps/2) * dil away
+                const int j = k0 / p.C;
+                map = &map_y;
+                c0 = k0 - j * p.C;
+                c1 = at.t0 + (j - p.taps / 2) * p.dil;
+              } else {
+                map = &map_cond;
+                c0 = k0 - kc;
+                c1 = at.t0;
+              }
+              c2 = at.seq;
+            },
+            pair_box<G>{&map_w, at.n0, p.C, p.layer}, it);
       }
     }
     return;
@@ -253,13 +240,15 @@ out_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CU
       sm90::tma_prefetch_map(&map_w);
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
         const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
-        gemm.produce(&map_w, p.layer, at.n0, p.C, at.seq, nk,
-                     [&](int kt, const CUtensorMap*& map, int& c0, int& c1) {
-                       map = &map_g;
-                       c0 = kt * sm90::BK;
-                       c1 = at.t0;
-                     },
-                     it);
+        gemm.produce(
+            nk,
+            [&](int kt, int, const CUtensorMap*& map, int& c0, int& c1, int& c2) {
+              map = &map_g;
+              c0 = kt * sm90::BK;
+              c1 = at.t0;
+              c2 = at.seq;
+            },
+            pair_box<G>{&map_w, at.n0, p.C, p.layer}, it);
       }
     }
     return;
@@ -329,6 +318,8 @@ EncodeTiled encoder() {
   return fn;
 }
 
+}  // namespace
+
 // A bf16 tensor (d2, d1, d0), d0 contiguous, cut into boxes of 1 x box_rows x
 // 64 elements (one 128-byte swizzle span); what a box holds outside the
 // tensor is zero-filled.
@@ -346,6 +337,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+namespace {
 
 // The tile that is built: 128 frames (two consumer warpgroups) x a pair of 64
 // columns, behind a ring of 6 stages of 32 KB: one block an SM with ~190 KB

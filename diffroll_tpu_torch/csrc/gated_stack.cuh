@@ -1,8 +1,10 @@
-// Device code shared by the gated-stack kernel (gated_stack.cu), the
-// whole-process sampler (sampler.cu) and the training kernels
-// (gated_stack_train.cu): one bf16 tile GEMM with f32
-// accumulation on the tensor cores (nvcuda::wmma 16x16x16 fragments), and
-// the A-operand addressing the two stack GEMMs need.
+// Code shared by the gated-stack kernel (gated_stack.cu), the whole-process
+// sampler (sampler.cu) and the training kernels (gated_stack_train.cu): the
+// stack's arguments and plan, small device helpers, and the simple bf16 tile
+// GEMM with f32 accumulation (nvcuda::wmma 16x16x16 fragments) that the
+// sampler's once-per-clip conditioner projection still runs on. The stack's
+// own products, forward and backward, run on the TMA + wgmma core of
+// gemm_sm90.cuh.
 //
 // Tile: a block of 256 threads (8 warps, each 32 x 32) computes BM=64 rows
 // x 2*BN=128 columns, where the columns are TWO slices of BN=64 of the weight
@@ -63,7 +65,23 @@ __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   }
 }
 
-__device__ __forceinline__ float sigmoidf(float a) { return 1.0f / (1.0f + expf(-a)); }
+// y[m, :] = bf16(x[m, :] + tb[(m / T) * tb_bs + :]) over the (M, C) rows: the
+// whole grid's job, eight values a thread a turn.
+__device__ __forceinline__ void add_time_bias(const bf16* __restrict__ x,
+                                              const float* __restrict__ tb, int tb_bs,
+                                              bf16* __restrict__ y, int M, int T, int C) {
+  const size_t n8 = (size_t)M * C / 8;
+  for (size_t i = blockIdx.x * (size_t)NT + threadIdx.x; i < n8; i += (size_t)gridDim.x * NT) {
+    const size_t e = i * 8;
+    const int m = (int)(e / C), c = (int)(e % C);
+    float v[8];
+    unpack8(*reinterpret_cast<const uint4*>(x + e), v);
+    const float* t = tb + (size_t)(m / T) * tb_bs + c;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] += t[q];
+    *reinterpret_cast<uint4*>(y + e) = pack8(v);
+  }
+}
 
 // 16-byte global -> shared copy, zero-filling when !valid (nothing is read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -83,31 +101,6 @@ struct RowSrc {
     const int m = m0 + r;
     valid = m < M;
     return a + (size_t)(valid ? m : 0) * lda + k0 + kv;
-  }
-};
-
-// The gate GEMM's A operand: K runs over `taps` shifted copies of
-// y = bf16(x + tb) (written once per layer, see launch_stack), then over the
-// padded conditioner lanes when `cond` is given. Row m is frame t = m % T of
-// sequence b = m / T; a tap reads frame t + off of the SAME sequence and is
-// zero outside [0, T), so a shift never crosses a batch boundary.
-struct TapSrc {
-  const bf16* y;      // (M, C)
-  const bf16* cond;   // (M, mp) or nullptr
-  int mp;
-  int m0, M, T, C, kc, ctr, dil;  // kc = taps * C
-  __device__ __forceinline__ const bf16* operator()(int r, int k0, int kv, bool& valid) const {
-    const int m = m0 + r;
-    if (k0 < kc) {
-      const int j = k0 / C;
-      const int c = k0 - j * C + kv;
-      const int off = (j - ctr) * dil;
-      const int t = m % T + off;
-      valid = m < M && t >= 0 && t < T;
-      return y + (size_t)(valid ? m + off : 0) * C + c;
-    }
-    valid = m < M;
-    return cond + (size_t)(valid ? m : 0) * mp + (k0 - kc) + kv;
   }
 };
 
@@ -233,6 +226,12 @@ cudaError_t plan_stack(const StackArgs& a, StackPlan* plan);
 // step. Returns cudaGetLastError().
 cudaError_t run_stack(const StackPlan& plan, const float* tb, const int* step, int tb_ss,
                       cudaStream_t stream);
+
+// A bf16 tensor (d2, d1, d0), d0 contiguous, cut into boxes of 1 x box_rows x
+// 64 elements (one 128-byte swizzle span); what a box holds outside the
+// tensor is zero-filled.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint64_t stride1, uint64_t stride2, uint32_t box_rows);
 
 // plan_stack + run_stack. With the saves unset this is K1 as it always was:
 // the saves add stores, no arithmetic.

@@ -1,28 +1,34 @@
-// The Hopper tile GEMM of the gated stack's forward kernels (gated_stack.cu):
-// bf16 operands brought into shared memory by TMA, multiplied by wgmma, f32
-// sums kept in registers until the caller's epilogue has finished them.
+// The Hopper tile GEMM of the gated stack's kernels, forward (gated_stack.cu)
+// and backward (gated_stack_train.cu): bf16 operands brought into shared memory
+// by TMA, multiplied by wgmma, f32 sums kept in registers until the caller's
+// epilogue has finished them.
 //
 // A block is NWG consumer warpgroups and one producer warp. Its tile is
-// BM = 64 * NWG frames of ONE sequence x the column pair (n0 .. n0+BN,
-// C+n0 .. C+n0+BN) of a (K, 2C) row-major weight matrix, so a consumer
-// thread holds both halves of a gate pair (sigmoid half, tanh half) or of an
-// output pair (residual half, skip half) in its own registers.
+// BM = 64 * NWG rows x 2 * BN columns; consumer warpgroup `wg` owns rows
+// 64 wg .. 64 wg + 63 and all the columns, so a consumer thread can hold both
+// halves of a gate pair or of an output pair in its own registers.
 //   * The producer's one thread walks the block's tiles and their k tiles
-//     (BK = 64, one 128-byte swizzle row of bf16) and issues, per k tile, one
-//     TMA load of the A box (64 k x BM frames x 1 sequence) and one per
-//     weight box (64 columns x 64 k x 1 layer) into a STAGES-deep ring.
-//     Completion is counted in bytes on the stage's `full` mbarrier; a stage
-//     is reused when every consumer warpgroup has arrived on its `empty` one.
-//     No thread computes an address for an element and no barrier is
-//     block-wide.
-//   * A is a 3-d tensor (channels, frames, sequences). A tap is the same box
-//     at frame t0 + (j - taps/2) * dilation: what falls outside [0, T) of that
-//     sequence, negative frames included, is zero-filled by the copy.
-//   * The consumers run four wgmma.mma_async (m64 x n(2BN) x k16) per k tile:
-//     A K-major and the weights MN-major (trans-b), both read through
-//     shared-memory descriptors that name the tensor maps' swizzle. One k tile
-//     stays in flight while the next is issued; a stage is released when the
-//     wgmma that read it has completed.
+//     (BK = 64) and starts, per k tile, the TMA loads of the A boxes and of the
+//     B boxes into a STAGES-deep ring. The caller names every box (tensor map
+//     and coordinates) through two callbacks. Completion is counted in bytes on
+//     the stage's `full` mbarrier; a stage is reused when every consumer
+//     warpgroup has arrived on its `empty` one. No thread computes an address
+//     for an element and no barrier is block-wide.
+//   * Every box is 64 elements (128 bytes, one swizzle span) wide. What a box
+//     holds outside its tensor, negative coordinates included, is zero-filled
+//     by the copy: that is how taps stop at a sequence's ends.
+//   * Operand layouts, template arguments TA and TB (wgmma's transpose flags):
+//       A K-major  (TA = 0): one box of 64 k x BM rows            (forward; dy, dg, dcond)
+//       A MN-major (TA = 1): NWG boxes of 64 rows x 64 k          (wgrad)
+//       B MN-major (TB = 1): 2BN/64 boxes of 64 columns x 64 k    (forward; wgrad)
+//       B K-major  (TB = 0): 2BN/64 boxes of 64 k x 64 columns    (dy, dg, dcond)
+//     K-major: rows of 128 bytes, 8-row groups 1,024 bytes apart, 16 k further
+//     is 32 bytes further. MN-major: k rows of 128 bytes (64 rows or columns
+//     contiguous), 8-k groups 1,024 bytes apart, 16 k further is 2,048 bytes
+//     further, the next 64 columns one 8 KB box further.
+//   * The consumers run four wgmma.mma_async (m64 x n(2BN) x k16) per k tile.
+//     One k tile stays in flight while the next is started; a stage is released
+//     when the wgmma that read it has completed.
 //   * The ring runs on across the tiles of a persistent block, so the loads
 //     of its next tile are in flight while the consumers finish a tile.
 // Sums are taken in a fixed order by one warpgroup per output element: the
@@ -104,8 +110,8 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x N, f32, spread over the warpgroup) = or += A (64 x 16, K-major) @
-// B (16 x N, N contiguous: trans-b), both bf16 in shared memory. Thread
+// d (64 x N, f32, spread over the warpgroup) = or += A (64 x 16) @ B (16 x N),
+// both bf16 in shared memory, each K-major or MN-major. Thread
 // `tid` of the warpgroup holds, for every 8-column chunk j, d[4j], d[4j+1] at
 // row 16 * (tid / 32) + (tid % 32) / 4, columns 8j + 2 * (tid % 4) + {0, 1},
 // and d[4j+2], d[4j+3] eight rows below.
@@ -114,6 +120,9 @@ struct Wgmma;  // the shape the stack uses is spelled out below: N = 128
 
 template <>
 struct Wgmma<128> {
+  // TA / TB: 1 where the operand lies MN-major in shared memory (the
+  // instruction's transpose flags), 0 where it lies K-major.
+  template <int TA, int TB>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int acc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -126,7 +135,7 @@ struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -143,23 +152,81 @@ struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc));
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 
+// tanh on the special-function unit: tanh.approx.f32 (one instruction, error
+// ~2^-11, below the bf16 rounding of what it feeds), and sigmoid(a) =
+// (1 + tanh(a / 2)) / 2. expf and tanhf cost some 60 instructions a value,
+// and 128 values a thread a tile ran as long as two thirds of the tile's
+// products while the tensor cores stood idle.
+__device__ __forceinline__ float tanh_fast(float a) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(a));
+  return r;
+}
+__device__ __forceinline__ float sigmoid_fast(float a) { return 0.5f * tanh_fast(0.5f * a) + 0.5f; }
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The accumulator rows of a consumer thread inside its block's tile: `row`
+// and `row + 8`; its columns inside every 8-column chunk: `col`, `col + 1`.
+struct Lane {
+  int wg, row, col;
+};
+__device__ __forceinline__ Lane lane_of_thread() {
+  const int t = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
+  return {wg, wg * 64 + (t / 32) * 16 + (t % 32) / 4, 2 * (t % 4)};
+}
+
+// A 4 x 4 transpose of 32-bit values across a quad of lanes (the four lanes
+// that share an accumulator row): lane q gives v[c] for c = 0..3 and gets
+// v[i] = lane i's v[q]. An epilogue turns "my two columns of four 8-column
+// chunks" into "all eight columns of chunk q" with it, so that it moves 16
+// bytes a lane to and from device memory instead of 4. Every lane of the warp
+// must call it.
+__device__ __forceinline__ void quad_transpose(unsigned int (&v)[4]) {
+  const bool odd = threadIdx.x & 1, hi = threadIdx.x & 2;
+  // with lane q ^ 1: an even lane keeps chunks 0 and 2 of the pair, an odd one 1 and 3
+  const unsigned int s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  const unsigned int s1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  const unsigned int a0 = odd ? s0 : v[0], a1 = odd ? v[1] : s0;
+  const unsigned int b0 = odd ? s1 : v[2], b1 = odd ? v[3] : s1;
+  // with lane q ^ 2: lanes 0 and 1 keep the lower chunk, lanes 2 and 3 the upper
+  const unsigned int t0 = __shfl_xor_sync(0xffffffffu, hi ? a0 : b0, 2);
+  const unsigned int t1 = __shfl_xor_sync(0xffffffffu, hi ? a1 : b1, 2);
+  v[0] = hi ? t0 : a0;
+  v[1] = hi ? t1 : a1;
+  v[2] = hi ? b0 : t0;
+  v[3] = hi ? b1 : t1;
+}
+
+__device__ __forceinline__ unsigned int pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned int*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(unsigned int u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // The ring and the two roles of one block.
-template <int BN_, int NWG_, int STAGES_>
+template <int BN_, int NWG_, int STAGES_, int TA_ = 0, int TB_ = 1>
 struct TileGemm {
-  static constexpr int BN = BN_, NWG = NWG_, STAGES = STAGES_;
-  static constexpr int BM = 64 * NWG;                  // frames per tile
-  static constexpr int NBOX = 2 * BN / 64;             // weight boxes per stage, both halves
-  static constexpr int BOX_BYTES = BK * 128;           // 64 k x 64 columns of bf16
+  static constexpr int BN = BN_, NWG = NWG_, STAGES = STAGES_, TA = TA_, TB = TB_;
+  static constexpr int BM = 64 * NWG;                  // rows per tile
+  static constexpr int NBOX = 2 * BN / 64;             // B boxes per stage
+  static constexpr int NABOX = TA ? NWG : 1;           // A boxes per stage
+  static constexpr int BOX_BYTES = BK * 128;           // 64 x 64 of bf16
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + NBOX * BOX_BYTES;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
   static constexpr int THREADS = NWG * 128 + 32;
   static constexpr int ACC = BN;                       // f32 per consumer thread: 64 x 2BN / 128
-  static_assert(BN % 64 == 0, "whole 128-byte swizzle spans of weight columns");
+  static_assert(BN % 64 == 0, "whole 128-byte swizzle spans of columns");
   static_assert(STAGE_BYTES % 1024 == 0, "stages stay 1,024-byte aligned");
 
   uint32_t base;  // the ring, 1,024-byte aligned; the barriers follow it
@@ -183,45 +250,51 @@ struct TileGemm {
     __syncthreads();
   }
 
-  // Producer thread: the nk k tiles of one output tile. `a_box(kt, map, c0,
-  // c1)` names the A box's tensor map, channel and frame; `seq` is its
-  // sequence. Weight rows run on from k tile 0 of layer `layer`.
-  template <class ABox>
-  __device__ __forceinline__ void produce(const CUtensorMap* map_w, int layer, int n0, int C,
-                                          int seq, int nk, ABox a_box, int& it) const {
+  // Producer thread: the nk k tiles of one output tile. `a_box(kt, i, map, c0,
+  // c1, c2)` names A box i of k tile kt (tensor map and coordinates, innermost
+  // first), `b_box` the same for B box i.
+  template <class ABox, class BBox>
+  __device__ __forceinline__ void produce(int nk, ABox a_box, BBox b_box, int& it) const {
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);  // passes at once on the first round
       mbar_expect_tx(full(s), STAGE_BYTES);
-      const CUtensorMap* map_a;
-      int c0, c1;
-      a_box(kt, map_a, c0, c1);
-      tma_load_3d(stage(s), map_a, full(s), c0, c1, seq);
+      const CUtensorMap* map;
+      int c0, c1, c2;
 #pragma unroll
-      for (int bx = 0; bx < NBOX; ++bx) {
-        const int col = (bx < NBOX / 2 ? n0 : C + n0 - BN) + bx * 64;
-        tma_load_3d(stage(s) + A_BYTES + bx * BOX_BYTES, map_w, full(s), col, kt * BK, layer);
+      for (int i = 0; i < NABOX; ++i) {
+        a_box(kt, i, map, c0, c1, c2);
+        tma_load_3d(stage(s) + i * (A_BYTES / NABOX), map, full(s), c0, c1, c2);
+      }
+#pragma unroll
+      for (int i = 0; i < NBOX; ++i) {
+        b_box(kt, i, map, c0, c1, c2);
+        tma_load_3d(stage(s) + A_BYTES + i * BOX_BYTES, map, full(s), c0, c1, c2);
       }
     }
   }
 
-  // Consumer warpgroup `wg`: d = A[64 wg .. +64, :] @ [W[:, n0..] | W[:, C+n0..]].
+  // Consumer warpgroup `wg`: d = A[64 wg .. +64, :] @ B over nk k tiles.
   // On return every wgmma has completed and d may be read.
   __device__ __forceinline__ void consume(float (&d)[ACC], int wg, int nk, int& it) const {
     const bool elected = threadIdx.x % 128 == 0;
+    // bytes from one k16 slice of a stage to the next
+    constexpr int A_STEP = TA ? 2048 : 32, B_STEP = TB ? 2048 : 32;
     int prev = -1;
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(full(s), (it / STAGES) & 1);
-      const uint64_t da = smem_desc(stage(s) + wg * 64 * 128, 16, 1024, 1);
-      // A: K-major rows of 128 bytes, 8-row groups 1,024 bytes apart. Weights:
-      // MN-major, 64 columns contiguous, 8 k rows 1,024 bytes apart, the next
-      // 64 columns one box further.
-      const uint64_t db = smem_desc(stage(s) + A_BYTES, BOX_BYTES, 1024, 1);
+      // K-major: the leading offset is not read under the 128-byte swizzle.
+      // MN-major: it is the step to the next 64 rows or columns (one box).
+      const uint64_t da = TA ? smem_desc(stage(s) + wg * BOX_BYTES, BOX_BYTES, 1024, 1)
+                             : smem_desc(stage(s) + wg * 64 * 128, 16, 1024, 1);
+      const uint64_t db = TB ? smem_desc(stage(s) + A_BYTES, BOX_BYTES, 1024, 1)
+                             : smem_desc(stage(s) + A_BYTES, 16, 1024, 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<2 * BN>::mma(d, da + kk * (32 >> 4), db + kk * (2048 >> 4), (kt | kk) != 0);
+        Wgmma<2 * BN>::template mma<TA, TB>(d, da + kk * (A_STEP >> 4), db + kk * (B_STEP >> 4),
+                                            (kt | kk) != 0);
       wgmma_commit();
       if (prev >= 0) {
         wgmma_wait<1>();  // k tile kt - 1 has been read: its stage may be refilled

@@ -32,8 +32,9 @@ SIGNATURES = {
                         _P, _I, _I, _I, _I, _I, _I, _P],
     "drk_gated_stack_fwd_saves": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                                   _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "drk_gated_stack_bwd": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "drk_gated_stack_bwd": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
     "drk_cond_proj": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
     "drk_sample_run": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],

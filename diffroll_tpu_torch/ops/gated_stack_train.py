@@ -14,10 +14,13 @@ the backward needs, and the backward, each beside its plain version.
 What bounds them on this card: operations. At B=16 the forward is ~0.73
 TFLOP and the backward ~1.37 TFLOP of bf16 products against a few hundred MB
 of saves and operands, so every product runs on the tensor cores (bf16
-operands, f32 sums) and the gate, its derivative, the residual updates and
-the bias sums ride in GEMM epilogues. The weight gradients contract over the
-B*T rows: the rows are split over blocks and the f32 partials are added in a
-fixed order by a second pass, so the result is the same bits every run.
+operands brought in by TMA, wgmma, f32 sums in registers) and the gate, its
+derivative, the residual updates and the bias sums ride in GEMM epilogues.
+The backward multiplies by the forward's own `kweights` as they lie: its
+kernels read them transposed through their descriptors. The weight gradients
+contract over the B*T rows: where that fills the card the rows are split by
+whole sequences (`wgrad_plan`) and the f32 partials are added in a fixed
+order by a second pass, so the result is the same bits every run.
 
 On CPU tensors both wrappers run the plain versions `fwd_saves_ref` and
 `bwd_ref` (transcriptions of `_fwd_saves_xla` and `_bwd_xla`); on CUDA
@@ -28,16 +31,20 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from .gated_stack import (
-    SQRT_HALF, GatedStackWeights, KernelWeights, _check, _shift, check_kernel_shapes,
+    SMS, SQRT_HALF, GatedStackWeights, KernelWeights, _check, _shift, check_kernel_shapes,
     dilation_array, pad_cond)
 
-BWD_TILE = 128  # the backward's column tile: C and the padded conditioner width
+BWD_TILE = 128  # the backward's tiles are 128 x 128: C and the padded conditioner width
+WGRAD_BOX = 64  # frames per k tile of a weight-gradient product
+WGRAD_ITEM_KT = 8  # a weight-gradient work item's start-up and epilogue, in k tiles
+# timing only: bit 0 launches dg alone, 1 dWo, 2 dW, 3 dy, 4 the rest (the result is void)
+PARTS = 31
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -182,19 +189,61 @@ def fwd_saves(x, t_bias, cond, w: GatedStackWeights, dilations: Sequence[int],
 fwd_saves.launches = 0  # K3 passes launched
 
 
-def wgrad_splits(m: int, c: int) -> int:
-    """Row splits of the weight-gradient products: enough blocks for two
-    waves over the card's 132 SMs from the smaller product's (C/64) x (2C/128)
-    tiles, each split at least 256 rows deep."""
-    tiles = (c // 64) * (2 * c // BWD_TILE)
-    return max(1, min(16, -(-264 // tiles), m // 256))
+def wgrad_plan(seqs: int, t_len: int, rows: int, cols: int) -> Tuple[int, int, int, int]:
+    """How a weight-gradient product (rows x cols, contracted over seqs x t_len
+    frames) is split over the card: (splits, sequences per split, work items,
+    waves). A work item is one 128 x 128 output tile of one split; its k loop
+    walks the 64-frame boxes of the split's whole sequences, and the items are
+    dealt over the card's SMs, one persistent block each. The split is the
+    one with the shortest busiest block, an item's start-up and epilogue
+    counted as `WGRAD_ITEM_KT` k tiles; of equals, the fewest splits (fewer
+    f32 partials to write and add)."""
+    tiles = (rows // BWD_TILE) * (cols // BWD_TILE)
+    kt_per_seq = -(-t_len // WGRAD_BOX)
+    best = None
+    for per_split in range(seqs, 0, -1):
+        splits = -(-seqs // per_split)
+        if -(-seqs // splits) != per_split:
+            continue  # the kernel deals ceil(seqs / splits) sequences to a split
+        items = tiles * splits
+        waves = -(-items // SMS)
+        cost = waves * (per_split * kt_per_seq + WGRAD_ITEM_KT)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per_split, items, waves)
+    return best[1:]
+
+
+def wgrad_boxes(seqs: int, t_len: int, splits: int) -> List[List[Tuple[int, int]]]:
+    """The k loop of a weight-gradient work item, per split, in the kernel's
+    order: (sequence, first frame) of each 64-frame box. A split holds whole
+    sequences; a sequence's last box may reach past T (zero-filled)."""
+    per_split = -(-seqs // splits)
+    return [[(b, f0) for b in range(z * per_split, min(seqs, (z + 1) * per_split))
+             for f0 in range(0, t_len, WGRAD_BOX)] for z in range(splits)]
+
+
+def wgrad_tap_frames(f0: int, tap: int, taps: int, dilation: int) -> range:
+    """The frames of y that tap `tap`'s box pairs with the da16 frames
+    f0 .. f0 + 63: the forward's shift. Frames outside [0, T) are zero-filled
+    in either operand's box, so every product outside the sequence has a zero
+    factor."""
+    first = f0 + (tap - taps // 2) * dilation
+    return range(first, first + WGRAD_BOX)
+
+
+def dy_tap_frames(t0: int, tap: int, taps: int, dilation: int) -> range:
+    """The frames of da16 a dy tile's A box covers for tap `tap`: the
+    forward's shift with the dilation negated."""
+    first = t0 - (tap - taps // 2) * dilation
+    return range(first, first + BWD_TILE)
 
 
 def bwd(dilations: Sequence[int], saves, cot, need_dcond: bool = True,
         kweights: Optional[KernelWeights] = None):
     """The backward from `saves = (t_bias, cond, w, xs, a)`; same returns as
     `bwd_ref`. CPU tensors run `bwd_ref` on `w`. CUDA tensors launch the
-    kernel on `kweights`, the operands the forward used, or raise."""
+    kernel on `kweights`, the operands the forward used, as they lie (the
+    kernel reads them transposed through its descriptors), or raise."""
     t_bias, cond, w, xs, a = saves
     if not cot.is_cuda:
         return bwd_ref(dilations, saves, cot, need_dcond)
@@ -213,38 +262,37 @@ def bwd(dilations: Sequence[int], saves, cot, need_dcond: bool = True,
     mp = kw.mp if cond16 is not None else 0
     want_dcond = need_dcond and cond16 is not None
 
-    # the transposed operands: the same bf16 values the forward multiplied by
-    wo_t = kw.wo.transpose(1, 2).contiguous()                                   # (L, 2C, C)
-    wd_t = kw.wcat[:, :kc].reshape(n_layers, taps, c, two_c).transpose(2, 3) \
-        .reshape(n_layers, taps * two_c, c).contiguous()                        # (L, k*2C, C)
-    wc_t = kw.wcat[:, kc:].transpose(1, 2).contiguous() if want_dcond else None  # (L, 2C, mp)
-
     f32 = dict(device=dev, dtype=torch.float32)
     b16 = dict(device=dev, dtype=torch.bfloat16)
     dx = torch.zeros(bsz, t_len, c, **f32)
     dwo = torch.empty(n_layers, c, two_c, **f32)
     dwcat = torch.empty(n_layers, kc + mp, two_c, **f32)
     db = torch.empty(n_layers, two_c, **f32)
-    dcond = torch.empty(bsz, t_len, mp, **f32) if want_dcond else None
+    dcond = torch.zeros(bsz, t_len, mp, **f32) if want_dcond else None  # summed over layers
     ssum = torch.zeros(n_layers + 1, bsz, c, **f32)  # S_l; S_L = 0
     scot = torch.empty(bsz, c, **f32)
-    splits = wgrad_splits(m, c)
+    splits_wo = wgrad_plan(bsz, t_len, c, two_c)[0]
+    splits_wcat = wgrad_plan(bsz, t_len, kc + mp, two_c)[0]
+    part_rows = max(splits_wo * c if splits_wo > 1 else 0,
+                    splits_wcat * (kc + mp) if splits_wcat > 1 else 0)
+    part = torch.empty(part_rows, two_c, **f32) if part_rows else None
     dout16 = torch.empty(m, two_c, **b16)
     gy16 = torch.empty(2, m, c, **b16)
     da16 = torch.empty(m, two_c, **b16)
-    part = torch.empty(splits, kc + mp, two_c, **f32)
-    db_part = torch.empty(-(-m // 64), two_c, **f32)
+    warp_rows = bsz * -(-t_len // BWD_TILE) * 8  # column sums per consumer warp of a row tile
+    db_part = torch.empty(n_layers, warp_rows, two_c, **f32)
+    ss_part = torch.empty(n_layers, warp_rows, c, **f32)
 
     dil = dilation_array(dilations)
     rc = _build.library().drk_gated_stack_bwd(
         xs.data_ptr(), a.data_ptr(), None if cond16 is None else cond16.data_ptr(), kw.mp,
-        tb.data_ptr(), bsz * c, c, wo_t.data_ptr(), wd_t.data_ptr(),
-        None if wc_t is None else wc_t.data_ptr(), cot32.data_ptr(), dx.data_ptr(),
-        dwo.data_ptr(), dwcat.data_ptr(), db.data_ptr(),
+        tb.data_ptr(), bsz * c, c, kw.wcat.data_ptr(), kw.wcat.shape[1], kw.wo.data_ptr(),
+        cot32.data_ptr(), dx.data_ptr(), dwo.data_ptr(), dwcat.data_ptr(), db.data_ptr(),
         None if dcond is None else dcond.data_ptr(), ssum.data_ptr(), scot.data_ptr(),
         dout16.data_ptr(), gy16[0].data_ptr(), gy16[1].data_ptr(), da16.data_ptr(),
-        part.data_ptr(), db_part.data_ptr(), ctypes.addressof(dil), n_layers, m, t_len, c,
-        taps, splits, torch.cuda.current_stream().cuda_stream)
+        None if part is None else part.data_ptr(), db_part.data_ptr(), ss_part.data_ptr(),
+        ctypes.addressof(dil), n_layers, m, t_len, c, taps, splits_wo, splits_wcat, PARTS,
+        torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "gated_stack_bwd")
     bwd.launches += 1
 

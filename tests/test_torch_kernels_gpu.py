@@ -236,9 +236,16 @@ def test_fwd_saves_kernel_matches_plain(cuda_f32, shape):
         tgt.fwd_saves(x, tb, cond, w, dil)
 
 
+# K4 alone: five sequences of 200 frames (a second row tile of 72 frames, a
+# fourth 64-frame box of 8, weight gradients in five one-sequence splits), and
+# a dilation of 8 on sequences of 4 frames (every off-centre tap box is zero)
+BWD_SHAPES = TRAIN_SHAPES + [(5, 200, 128, 4, True), (3, 4, 128, 4, False)]
+BWD_IDS = TRAIN_IDS + ["odd_sequences_ragged_boxes", "dilation_past_T_nocond"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("need_dcond", [True, False], ids=["dcond", "nodcond"])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=BWD_IDS)
 def test_bwd_kernel_matches_plain(cuda_f32, shape, need_dcond):
     """K4 against the plain backward from the same (kernel-made) saves."""
     dil, w, wq, kw, x, tb, cond, cot = _train_case(cuda_f32, shape)
@@ -264,6 +271,24 @@ def test_bwd_kernel_matches_plain(cuda_f32, shape, need_dcond):
         assert got[name].shape == want[name].shape, name
         assert _rel(got[name], want[name]) < BF16_GATE, name
         assert torch.equal(got[name], rerun[name]), name  # fixed summation order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 100, 128, 4, True), (1, 640, 512, 15, True)],
+                         ids=["ragged_T", "flagship_b1"])
+def test_bwd_kernel_same_bits_every_run(cuda_f32, shape):
+    """No atomics, partial sums added in a fixed order: two sweeps on the same
+    saves, with other work on the stream in between, agree bit for bit in
+    every leaf."""
+    dil, w, _, kw, x, tb, cond, cot = _train_case(cuda_f32, shape)
+    with torch.no_grad():
+        _, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        first = tgt.bwd(dil, (tb, cond, w, xs, a), cot, True, kweights=kw)
+        torch.randn(1 << 22, device=cuda_f32)
+        second = tgt.bwd(dil, (tb, cond, w, xs, a), cot, True, kweights=kw)
+    torch.cuda.synchronize()
+    for one, two in zip((*first[:3], *first[3][:6]), (*second[:3], *second[3][:6])):
+        assert torch.equal(one, two)
 
 
 @pytest.mark.gpu
