@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases, in the order they run (each prints one line; any failure raises and
+exits non-zero):
   1. device     CUDA present; the card's name and power limit (nvidia-smi)
   2. build      the kernels compiled from diffroll_tpu_torch/csrc (nvcc)
   3. ckpt       a full-width ClassifierFreeDiffRoll (512 x 15, T=200) from a
@@ -11,58 +12,102 @@ Phases (each prints one line; any failure raises and exits non-zero):
   4. transcribe `diffroll_tpu_torch.cli.transcribe.main` on a synthetic ~30 s
                 16 kHz wav (two 640-frame windows, 200-step cfdg_ddpm_x0,
                 w=0.5); launch counters reset just before, read just after
-  5. k1         the gated-stack kernel vs its plain version at the flagship
+  5. train      `diffroll_tpu_torch.cli.train.main` at full width (512 x 15,
+                B=16, task.fused_train=true) on a synthetic MAPS-layout corpus
+                written here (48 train recordings, and 4 test recordings of
+                21 s: 8 windows): one epoch of 3 optimizer steps, validation,
+                the checkpoints, then the test split on the EMA weights: it
+                must write test_metrics.json. Launch counters reset just
+                before, read just after: K3 and K4 once per step. Then the
+                checkpoint `train` wrote is loaded, a few more steps run on one
+                fixed batch (the loss must not rise), and one `task.sample`
+                call runs on it
+  6. test       `diffroll_tpu_torch.cli.test.main` on that checkpoint over the
+                test split: one batch of 8 windows, so K2 once at B=8 (and K1
+                200 times inside it); n_clips must be 4 and the metrics
+                finite (the F1 of a random model is printed, not gated);
+                seconds per test batch
+  7. sample     `diffroll_tpu_torch.cli.sample.main` in inpainting_ddpm_x0
+                (task.inpainting_t=[100,200], the test split) and in
+                generation_ddpm_x0, num_samples=2 each: the manifest, npz
+                with the 20-snapshot trajectory and MIDI must exist, K1 must
+                launch 200 times per batch (8 windows: 16 guided sequences;
+                8 unguided) and K2 not at all; whether the GIF was written
+  8. serve      the service `python -m diffroll_tpu_torch serve` builds from
+                that checkpoint with the ServeConfig defaults (max_batch=8,
+                max_wait_ms=25, int16 transfer, pipeline depth 2), warmed up,
+                behind the HTTP front on a free localhost port: /healthz and
+                8 concurrent 20 s requests (one window each) must each return
+                a roll of the right length in fewer batches than windows, K2
+                launched once per batch; then a burst of 32 concurrent such
+                requests for windows per second (B=8 clips/s) and the mean
+                batch wall time. The same again with max_wait_ms=100, as a
+                labelled comparison; then a detailed_timing service for the
+                mean compute time of a batch (sum_compute_s)
+  9. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
-  6. k2         the whole-process sampler vs its plain version at B=1 and at
+ 10. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
-                plain trajectory
-     Both gates hold the kernels against the plain f32 versions run on the
+                plain trajectory, and a second loop for the same bits
+ 11. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+                each stream), guided, w=0.5: rel < 0.05, the same bits; the
+                step loop there is the sample path's inpainting batch (K1 on
+                16 sequences), held the same way
+ 12. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+                spec := -1)
+ 13. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 14. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+                generation batch: K1 on 8 sequences): K2 and the step loop
+                (K1 per step) against the plain trajectory, each rel < 0.05
+                and the same bits on a second run
+     The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them: the error against the unrounded f32 weights, and the plain
-     version on rounded weights against itself on f32 weights.
-  7. k3         the training forward-with-saves kernel vs its plain version at
+     beside them in phase 10: the error against the unrounded f32 weights,
+     and the plain version on rounded weights against itself on f32 weights.
+ 15. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
-  8. k4         the training backward kernel vs its plain version from the same
+ 16. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
-  9. train      `diffroll_tpu_torch.cli.train.main` at full width (512 x 15,
-                B=16, task.fused_train=true) on a synthetic MAPS-layout corpus
-                written here: one epoch of 3 optimizer steps, validation, the
-                checkpoints. Launch counters reset just before, read just
-                after: K3 and K4 once per step. Then the checkpoint `train`
-                wrote is loaded, a few more steps run on one fixed batch (the
-                loss must not rise), and one `task.sample` call runs on it
- 10. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 17. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 11. times      warm median times of the four kernels and their plain versions
-                (K2 at B=1 and B=2; the summary line gives B=2), and of a whole
-                training step at B=16 by three routes: K3 + K4, K3 + the plain
-                backward, autograd through the nn.Modules (f32; and once more
-                with TF32 products allowed); under `gemm`, the stack's two GEMM
-                kernels alone at M = 1,280 and M = 2,560 rows (us per call,
-                TFLOP/s, tiles and waves) with, as a yardstick only, one bf16
-                `torch.matmul` of the same (M, K) x (K, 2C) shapes
-                (`gemm_yardstick_ms`: it computes neither the taps nor the
-                epilogues, and the port never calls it); and the backward's
-                four products alone (`dg`, `dy`, the weight gradients `dwo`
-                and `dw`) at M = 1,280 and M = 10,240 with their yardsticks
+ 18. times      warm median times of the four kernels and their plain versions
+                (K2 at B=1, B=2 and B=8; the summary line gives B=2, and B=8
+                under `*_b8`), and of a whole training step at B=16 by three
+                routes: K3 + K4, K3 + the plain backward, autograd through the
+                nn.Modules (f32; and once more with TF32 products allowed);
+                under `gemm`, the stack's two GEMM kernels alone at M = 1,280
+                and M = 2,560 rows (us per call, TFLOP/s, tiles and waves)
+                with, as a yardstick only, one bf16 `torch.matmul` of the same
+                (M, K) x (K, 2C) shapes (`gemm_yardstick_ms`: it computes
+                neither the taps nor the epilogues, and the port never calls
+                it); and the backward's four products alone (`dg`, `dy`, the
+                weight gradients `dwo` and `dw`) at M = 1,280 and M = 10,240
+                with their yardsticks
 The two lines before the last are the kernel summary (JSON) and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}. Each
 kernel's `bound_ms` is the larger of its operations over the card's published
 bf16 peak and its bytes (every input read once, every output written once)
 over the published memory rate; `library_ms` is null because no single
-PyTorch call computes any of the four functions.
+PyTorch call computes any of the four functions. A kernel's `launches` is
+its count on its first path, transcribe for K1 and K2, train for K3 and K4;
+`launches_by_path` gives the count of each user-facing path that the script
+drives with the counters reset just before and read just after (transcribe,
+train, test, sample, serve). K1's `max_abs_err` is its single pass's;
+`max_abs_err_step_loop` is the largest of its step loops' 200-step
+trajectories against the plain ones.
 """
 
 from __future__ import annotations
 
 import importlib
+import io
 import json
 import math
 import pathlib
@@ -84,6 +129,9 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA's data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 TRAIN_BATCH = 16
 TRAIN_STEPS = 3
+TEST_RECORDINGS = 4   # of 21 s: two 640-frame windows each, one test batch of 8
+SERVE_BATCH = 8       # serve.max_batch's default, and dataloader.test_batch_size's
+STEPS = 200
 
 
 def phase(name: str, **fields) -> None:
@@ -141,11 +189,13 @@ def bwd_flops(m: int, c: int, taps: int, mp: int, layers: int, dcond: bool) -> f
     return per_layer * layers
 
 
-def write_maps_corpus(root: pathlib.Path, n: int, seconds: float, sr: int, seed: int) -> None:
+def write_maps_corpus(root: pathlib.Path, n: int, seconds: float, sr: int, seed: int,
+                      subset: str = "AkPnBcht") -> None:
     """`n` recordings in the MAPS layout: 16 kHz mono wavs of seeded sine
-    notes under <root>/MAPS/AkPnBcht/MUS/, each beside its tab-separated
-    `OnsetTime OffsetTime MidiPitch` label file."""
-    folder = root / "MAPS" / "AkPnBcht" / "MUS"
+    notes under <root>/MAPS/<subset>/MUS/, each beside its tab-separated
+    `OnsetTime OffsetTime MidiPitch` label file. AkPnBcht is in MAPS's train
+    split, ENSTDkCl in its test split."""
+    folder = root / "MAPS" / subset / "MUS"
     folder.mkdir(parents=True)
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * sr)) / sr
@@ -159,7 +209,7 @@ def write_maps_corpus(root: pathlib.Path, n: int, seconds: float, sr: int, seed:
             seg = (t >= onset) & (t < offset)
             audio[seg] += 0.1 * np.sin(2 * np.pi * 440.0 * 2 ** ((midi - 69) / 12) * t[seg])
             rows.append(f"{onset:.6f}\t{offset:.6f}\t{midi}")
-        name = f"MAPS_MUS-synth{i:03d}_AkPnBcht"
+        name = f"MAPS_MUS-synth{i:03d}_{subset}"
         write_wav(folder / f"{name}.wav", audio.astype(np.float32), sr)
         (folder / f"{name}.txt").write_text("\n".join(rows) + "\n")
 
@@ -194,13 +244,208 @@ def chord_wav(seconds: float, sr: int, seed: int) -> np.ndarray:
 
 
 def write_wav(path: pathlib.Path, samples: np.ndarray, sample_rate: int) -> None:
-    """Mono float [-1, 1] -> 16-bit PCM WAV."""
+    """Mono float [-1, 1] -> a 16-bit PCM WAV file."""
+    path.write_bytes(wav_bytes(samples, sample_rate))
+
+
+def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
+    """Mono float [-1, 1] -> the bytes of a 16-bit PCM WAV file."""
+    buf = io.BytesIO()
     pcm = np.clip(samples * 32767.0, -32768, 32767).astype("<i2")
-    with wave.open(str(path), "wb") as w:
+    with wave.open(buf, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def reset_launches(*fns) -> None:
+    torch.cuda.synchronize()
+    for fn in fns:
+        fn.launches = 0
+
+
+def run_test_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, kernels) -> dict:
+    """`cli.test.main` on `ckpt` over the test split under `data`; returns
+    this path's launch counts."""
+    from diffroll_tpu_torch.cli import test as cli_test
+
+    gated_stack, fused_sample = kernels
+    reset_launches(gated_stack, fused_sample)
+    t0 = time.perf_counter()
+    metrics = cli_test.main([f"pretrained_path={ckpt}", f"dataset.root={data}",
+                             "device=cuda", "audio_format=wav", f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+    batches = -(-2 * TEST_RECORDINGS // SERVE_BATCH)
+    if metrics["n_clips"] != TEST_RECORDINGS or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"test scored {metrics['n_clips']} recordings: {metrics}")
+    if launches != {"gated_stack": STEPS * batches, "fused_sample": batches}:
+        raise RuntimeError(f"test did not run K2 once per batch of {SERVE_BATCH}: {launches}")
+    phase("test", seconds=seconds, batches=batches, batch_size=SERVE_BATCH,
+          seconds_per_batch=seconds / batches, n_clips=metrics["n_clips"],
+          note_f1=metrics["note_f1"], frame_f1=metrics["frame_f1"],
+          eval_overlap_frames=metrics["eval_overlap_frames"], launches=launches)
+    return launches
+
+
+def run_sample_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, frames: int,
+                 kernels) -> dict:
+    """`cli.sample.main` in inpainting (the test split's 8 windows, one
+    guided batch) and generation (one unguided batch of 8), num_samples=2;
+    returns this path's launch counts."""
+    from diffroll_tpu_torch.cli import sample as cli_sample
+
+    gated_stack, fused_sample = kernels
+    runs, total = {}, {"gated_stack": 0, "fused_sample": 0}
+    for mode, extra in (("inpainting_ddpm_x0", ["task.inpainting_t=[100,200]", "dataset.name=MAPS",
+                                                f"dataset.root={data}"]),
+                        ("generation_ddpm_x0", [])):
+        reset_launches(gated_stack, fused_sample)
+        t0 = time.perf_counter()
+        run_dir = cli_sample.main([f"pretrained_path={ckpt}", f"task.sampling_type={mode}",
+                                   "num_samples=2", "device=cuda",
+                                   f"trainer.output_dir={out}", *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        manifest = json.loads((run_dir / "manifest.json").read_text())
+        if len(manifest) != 2:
+            raise RuntimeError(f"sample {mode} wrote {len(manifest)} clips")
+        for i, m in enumerate(manifest):
+            z = np.load(run_dir / f"{i:03d}_{m['clip']}.npz")
+            if z["trajectory"].shape != (STEPS // 10, frames, 88) or not np.isfinite(
+                    z["trajectory"]).all() or not (run_dir / f"{i:03d}_{m['clip']}.mid").exists():
+                raise RuntimeError(f"sample {mode}: bad clip {m}: {z['trajectory'].shape}")
+        # one batch of 8 windows / noise draws: K1 once per step, K2 never
+        if launches != {"gated_stack": STEPS, "fused_sample": 0}:
+            raise RuntimeError(f"sample {mode} did not take the step loop: {launches}")
+        runs[mode] = {"seconds": seconds, "launches": launches,
+                      "notes": [m["notes"] for m in manifest],
+                      "gif_written": (run_dir / "denoising.gif").exists()}
+        for k in total:
+            total[k] += launches[k]
+    phase("sample", runs=runs, launches=total)
+    return total
+
+
+def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -> dict:
+    """The service `python -m diffroll_tpu_torch serve` builds from the
+    checkpoint with the ServeConfig defaults (max_wait_ms=25), behind the
+    HTTP front on a free localhost port; then the same with max_wait_ms=100
+    as a labelled comparison, and a detailed_timing service. Returns the
+    default service's launch counts."""
+    import threading
+    import urllib.request
+
+    from diffroll_tpu_torch.cli import serve as cli_serve
+    from diffroll_tpu_torch.serve import TranscriptionService, serve_forever
+
+    gated_stack, fused_sample = kernels
+    argv = [f"pretrained_path={ckpt}", "device=cuda"]  # the sampling preset: w=0.5
+    seconds_each = 20.0
+    bodies = [wav_bytes(chord_wav(seconds_each, sr, SEED + 10 + i), sr)
+              for i in range(SERVE_BATCH)]
+    want_frames = math.ceil(seconds_each * frames_per_s)
+
+    def drive(extra):
+        """One service: warm-up, /healthz, a burst of 8 concurrent requests
+        (one window each), then a burst of 32 (four batches' worth) timed
+        for windows per second. Returns its readings and launch counts."""
+        t0 = time.perf_counter()
+        svc, cfg, info = cli_serve.make_service(argv + extra)
+        warmup_s = time.perf_counter() - t0
+        reset_launches(gated_stack, fused_sample)
+        ready = threading.Event()
+        threading.Thread(target=serve_forever, args=(svc, "127.0.0.1", 0),
+                         kwargs={"info": info, "ready": ready}, daemon=True).start()
+        if not ready.wait(30):
+            raise RuntimeError("the HTTP front did not start")
+        server = ready.server
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def burst(n):
+            """n concurrent POSTs; returns their payloads (a failed one: None)."""
+            out = [None] * n
+
+            def post(i):
+                req = urllib.request.Request(f"{base}/transcribe",
+                                             data=bodies[i % len(bodies)], method="POST")
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    out[i] = json.loads(r.read())
+
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            return out
+
+        try:
+            with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            if health["status"] != "ok" or health["stats"]["batches"] != 0:
+                raise RuntimeError(f"healthz: {health}")
+            first = burst(SERVE_BATCH)
+            stats = dict(svc.stats)
+            if any(p is None or p["frames"] != want_frames for p in first):
+                raise RuntimeError(f"serve returned {[p and p['frames'] for p in first]} "
+                                   f"frames, want {want_frames}")
+            if not stats["batches"] < stats["windows"] == SERVE_BATCH:
+                raise RuntimeError(f"the requests did not share batches: {stats}")
+            n_load = 4 * SERVE_BATCH
+            t0 = time.perf_counter()
+            load = burst(n_load)
+            load_s = time.perf_counter() - t0
+            if any(p is None for p in load):
+                raise RuntimeError("a request of the throughput burst failed")
+            after = dict(svc.stats)
+        finally:
+            server.shutdown()
+            svc.close()
+        torch.cuda.synchronize()
+        launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        if launches["fused_sample"] != after["batches"] or launches["gated_stack"] < STEPS:
+            raise RuntimeError(f"serve did not run K2 once per batch: {launches}, {after}")
+        batches = after["batches"] - stats["batches"]
+        sv = cfg.serve
+        return {"max_wait_ms": sv.max_wait_ms, "transfer": sv.transfer,
+                "pipeline_depth": sv.pipeline_depth, "warmup_s": warmup_s,
+                "first_burst_batches": stats["batches"],
+                "first_burst_windows": stats["windows"], "load_requests": n_load,
+                "load_seconds": load_s, "load_batches": batches,
+                "windows_per_second": n_load / load_s,
+                "mean_batch_wall_s": (after["sum_batch_wall_s"]
+                                      - stats["sum_batch_wall_s"]) / batches,
+                "launches": launches}, svc.task
+
+    default, task = drive([])
+    wide, _ = drive(["serve.max_wait_ms=100"])
+    # the first burst through a service that times each stage alone
+    svc = TranscriptionService(task, max_batch=SERVE_BATCH, seed=SEED, detailed_timing=True,
+                               transfer_dtype=default["transfer"])
+    try:
+        svc.warmup()
+        audio = chord_wav(seconds_each, sr, SEED + 10)
+        threads = [threading.Thread(target=svc.transcribe, args=(audio,))
+                   for _ in range(SERVE_BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        detailed = dict(svc.stats)
+    finally:
+        svc.close()
+    per = {k[4:]: detailed[k] / detailed["batches"] for k in detailed if k.startswith("sum_")}
+    phase("serve", requests=SERVE_BATCH, frames=want_frames,
+          burst="8 concurrent 20 s requests, then 32 (each one window; 8 distinct bodies)",
+          default=default, max_wait_100ms=wide, detailed_batches=detailed["batches"],
+          detailed_sum_compute_s=detailed["sum_compute_s"], detailed_mean_s=per,
+          launches=default["launches"])
+    return default["launches"]
 
 
 def main() -> int:
@@ -288,6 +533,7 @@ def main() -> int:
 
         # ---- train: the CLI at full width on a corpus written here
         write_maps_corpus(tmp / "data", TRAIN_BATCH * TRAIN_STEPS, 21.0, sr, SEED)
+        write_maps_corpus(tmp / "data", TEST_RECORDINGS, 21.0, sr, SEED + 1, subset="ENSTDkCl")
         for fn in (gated_stack, fused_sample, fwd_saves, bwd):
             fn.launches = 0
         torch.cuda.synchronize()
@@ -300,7 +546,8 @@ def main() -> int:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_launches = {"fwd_saves": fwd_saves.launches, "bwd": bwd.launches,
-                          "gated_stack": gated_stack.launches}
+                          "gated_stack": gated_stack.launches,
+                          "fused_sample": fused_sample.launches}
         run_dirs = list((tmp / "train_out").glob("*/*/train-*"))
         if len(run_dirs) != 1:
             raise RuntimeError(f"expected one train run dir, found {run_dirs}")
@@ -324,6 +571,14 @@ def main() -> int:
         best_ckpts = sorted((run_dirs[0] / "checkpoints").glob("step_*.ckpt"))
         if not last_ckpt.exists() or not best_ckpts:
             raise RuntimeError("train wrote no last / monitored checkpoint")
+        # the test split after fit, on the EMA weights: K2 at B=8
+        post_fit = run_dirs[0] / "test_metrics.json"
+        if not post_fit.exists():
+            raise RuntimeError("train wrote no test_metrics.json after fit")
+        post_fit = json.loads(post_fit.read_text())
+        if post_fit["n_clips"] != TEST_RECORDINGS or train_launches["fused_sample"] < 1:
+            raise RuntimeError(f"the post-fit test scored {post_fit['n_clips']} recordings, "
+                               f"K2 launched {train_launches['fused_sample']} times")
         del state
 
         # the checkpoint train wrote: reload, a few more steps on one fixed
@@ -355,8 +610,18 @@ def main() -> int:
               launches=train_launches, train_losses=train_losses, val_losses=val_losses,
               params_changed=moved, checkpoints=[last_ckpt.name] + [c.name for c in best_ckpts],
               fixed_batch_losses=fixed_losses,
-              sample_range=[float(sampled.min()), float(sampled.max())])
+              sample_range=[float(sampled.min()), float(sampled.max())],
+              test_metrics={k: post_fit[k] for k in ("n_clips", "note_f1", "frame_f1")})
         del trained, ttask, tstate
+
+        # ---- the entries that use a trained model: test, sample, serve
+        kernels = (gated_stack, fused_sample)
+        path_launches = {"transcribe": launches, "train": train_launches,
+                         "test": run_test_phase(last_ckpt, tmp / "data", tmp / "test_out",
+                                                kernels),
+                         "sample": run_sample_phase(last_ckpt, tmp / "data", tmp / "sample_out",
+                                                    mc.frames, kernels),
+                         "serve": run_serve_phase(ckpt, sr, sr / mc.mel.hop_length, kernels)}
 
     net = model.net
     dil = mc.dilations()
@@ -390,45 +655,92 @@ def main() -> int:
                                f"itself on a second run (same bits: {k1_same_bits})")
 
         task = DiffusionTask(model, TaskConfig(timesteps=mc.timesteps, w=W_GUIDANCE))
-        ts = timestep_subsequence(mc.timesteps, None)
-        tables = torch.from_numpy(
-            sampler_tables(task.schedule, "cfdg_ddpm_x0", ts, previous_timesteps(ts))).to(dev)
-        t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev), net.diffusion_embedding)
-        t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
         window_s = t_len * mc.mel.hop_length / sr
-        k2_abs, k2_args = 0.0, {}
-        # B=1: one 20.48 s window; B=2: the batch the transcribe phase gives K2
-        # (two windows, four CFG streams)
-        for bk in (1, 2):
-            wav = torch.stack([torch.from_numpy(chord_wav(window_s, sr, SEED + 1 + i))
-                               for i in range(bk)]).to(dev)
+
+        def process(sampling_type, steps, bk):
+            """`fused_sample`'s arguments for one reverse process at B=bk
+            (seeded waveforms, x_T and noise), and the waveforms."""
+            ts = timestep_subsequence(mc.timesteps, steps)
+            tables = torch.from_numpy(sampler_tables(task.schedule, sampling_type, ts,
+                                                     previous_timesteps(ts))).to(dev)
+            t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev), net.diffusion_embedding)
+            t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
+            stochastic = bool((tables[:, 2] != 0).any())
+            generation = sampling_type.startswith("generation")
+            wav = None if generation else torch.stack(
+                [torch.from_numpy(chord_wav(window_s, sr, SEED + 1 + i))
+                 for i in range(bk)]).to(dev)
             x_T = torch.randn(bk, t_len, mc.pitches, device=dev, generator=gen)
-            noise = torch.randn((len(ts), bk, t_len, mc.pitches), device=dev, generator=gen)
-            args = (x_T, noise, t_bias, tables, w, head, task.build_conditioner(x_T, wav),
-                    dil, True, W_GUIDANCE, True)
-            ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
-            ref32 = fused_sample_ref(*args)
+            noise = (torch.randn((len(ts), bk, t_len, mc.pitches), device=dev, generator=gen)
+                     if stochastic else None)
+            # generation conditions on spec := -1 with one stream; the others
+            # are guided: the conditional stream and the spec := -1 one
+            cond = (torch.full((bk, t_len, mc.n_mels), -1.0, device=dev) if generation
+                    else task.build_conditioner(x_T, wav))
+            return (x_T, noise, t_bias, tables, w, head, cond, dil, not generation, W_GUIDANCE,
+                    stochastic), wav
+
+        def step_loop(sampling_type, steps, x_T, wav, noise):
+            """The same process by the step loop: K1 once per step."""
+            cfg = task.config.replace(sampling_type=sampling_type, sampling_steps=steps,
+                                      use_megakernel=False)
+            return DiffusionTask(model, cfg).sample(x_T, waveform=wav, noise=noise)[0]
+
+        def hold_k2(name, sampling_type, steps, bk, loop=False, f32=False):
+            """K2 against the plain process on the kernels' weight values,
+            and a second run for the same bits; `loop` adds the step loop
+            (K1 per step, at the sequences the sample path gives it) against
+            the same plain trajectory, and a second loop for the same bits;
+            `f32` adds the errors against the unrounded f32 weights."""
+            args, wav = process(sampling_type, steps, bk)
+            x_T, noise = args[0], args[1]
+            ref = fused_sample_ref(x_T, noise, args[2], args[3], wq, *args[5:])
             out = fused_sample(*args, kweights=kw)
             same_bits = torch.equal(out, fused_sample(*args, kweights=kw))
-            scan = DiffusionTask(model, task.config.replace(use_megakernel=False)).sample(
-                x_T, waveform=wav, noise=noise)[0]
             torch.cuda.synchronize()
             rel, abs_err = rel_err(out, ref)
-            scan_rel, scan_abs = rel_err(scan, ref)
-            phase("k2", batch=bk, steps=len(ts), rel=rel, max_abs_err=abs_err,
-                  same_bits_on_rerun=same_bits,
-                  scan_rel=scan_rel, scan_max_abs_err=scan_abs,
-                  rel_f32_weights=rel_err(out, ref32)[0],
-                  scan_rel_f32_weights=rel_err(scan, ref32)[0],
-                  # the plain version against itself: bf16-rounded vs f32 weights
-                  ref_rounding_rel=rel_err(ref, ref32)[0],
-                  finite=bool(torch.isfinite(out).all()))
-            if not (rel < GATE and scan_rel < GATE and torch.isfinite(out).all() and same_bits):
-                raise RuntimeError(f"K2 / the step loop disagree with the plain trajectory "
-                                   f"at B={bk}: rel {rel}, scan rel {scan_rel}, same bits on "
-                                   f"a second run: {same_bits}")
-            k2_abs = max(k2_abs, abs_err)
-            k2_args[bk] = args
+            finite = bool(torch.isfinite(out).all())
+            fields, ok, scan_abs = {}, rel < GATE and same_bits and finite, 0.0
+            if loop:
+                before = gated_stack.launches
+                scan = step_loop(sampling_type, steps, x_T, wav, noise)
+                passes = gated_stack.launches - before
+                scan_same = torch.equal(scan, step_loop(sampling_type, steps, x_T, wav, noise))
+                scan_rel, scan_abs = rel_err(scan, ref)
+                fields = dict(scan_rel=scan_rel, scan_max_abs_err=scan_abs,
+                              scan_k1_launches=passes, scan_k1_sequences=bk * (1 + args[8]),
+                              scan_same_bits_on_rerun=scan_same)
+                ok = (ok and scan_rel < GATE and scan_same and passes == args[3].shape[0]
+                      and bool(torch.isfinite(scan).all()))
+            if f32:
+                ref32 = fused_sample_ref(*args)
+                fields.update(rel_f32_weights=rel_err(out, ref32)[0],
+                              scan_rel_f32_weights=rel_err(scan, ref32)[0],
+                              # the plain version against itself: bf16-rounded vs f32 weights
+                              ref_rounding_rel=rel_err(ref, ref32)[0])
+            phase(name, batch=bk, sampler=sampling_type, steps=args[3].shape[0],
+                  streams=2 if args[8] else 1, noise=args[10], rel=rel, max_abs_err=abs_err,
+                  same_bits_on_rerun=same_bits, finite=finite, **fields)
+            if not ok:
+                raise RuntimeError(f"{name}: K2 or the step loop disagrees with the plain "
+                                   f"trajectory at B={bk} ({sampling_type}): rel {rel}, "
+                                   f"same bits on a second run: {same_bits}, {fields}")
+            return args, abs_err, scan_abs
+
+        k2_abs, k2_args, loop_abs = 0.0, {}, 0.0
+        # B=1: one 20.48 s window; B=2: the batch the transcribe phase gives K2
+        # (two windows, four CFG streams); B=8: the test and serving batch, and
+        # the sample path's guided step loop (inpainting: 16 sequences in K1)
+        for name, bk, f32 in (("k2", 1, True), ("k2", 2, True), ("k2_b8", 8, False)):
+            k2_args[bk], abs_err, scan_abs = hold_k2(name, "cfdg_ddpm_x0", None, bk, True, f32)
+            k2_abs, loop_abs = max(k2_abs, abs_err), max(loop_abs, scan_abs)
+        for name, sampler, steps, bk in (("k2_gen", "generation_ddpm_x0", None, 1),
+                                         ("k2_ddim", "cfdg_ddim_x0", 50, 2)):
+            k2_abs = max(k2_abs, hold_k2(name, sampler, steps, bk)[1])
+        # the step loop for generation: K1 on unguided rows, spec := -1, at
+        # B=2 and at the sample path's B=8
+        for bk in (2, 8):
+            loop_abs = max(loop_abs, hold_k2("k1_uncond", "generation_ddpm_x0", None, bk, True)[2])
 
         # ---- k3 / k4 at the training batch
         bt = TRAIN_BATCH
@@ -531,7 +843,9 @@ def main() -> int:
         }
         for bk, args in k2_args.items():
             times[f"k2_b{bk}_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 3)
-            times[f"k2_b{bk}_plain_ms"] = time_ms(lambda: fused_sample_ref(*args), 3)
+            # the plain process at B=8 takes seconds: one unwarmed run
+            times[f"k2_b{bk}_plain_ms"] = time_ms(lambda: fused_sample_ref(*args),
+                                                  *((1, 0) if bk == 8 else (3,)))
         # the stack's two GEMM kernels alone, M = 1,280 (one clip's two
         # guidance streams) and M = 2,560 rows, beside a matmul yardstick
         gemm = {}
@@ -551,16 +865,16 @@ def main() -> int:
     w_bytes = nbytes(kw.wcat, kw.wo, kw.b_eff, kw.bo)
     bounds = {"k1": bound(stack_flops(b * t_len, c, taps, mp, L),
                           nbytes(x, tb, cond, k1_out) + w_bytes)}
-    for bk, key in ((2, "k2"), (1, "k2_b1")):  # the summary line gives B=2
-        x_Tk, noisek, condk = k2_args[bk][0], k2_args[bk][1], k2_args[bk][6]
+    for bk, key in ((2, "k2"), (1, "k2_b1"), (8, "k2_b8")):  # the summary line gives B=2
+        x_Tk, noisek, t_biask, tablesk, condk = (k2_args[bk][i] for i in (0, 1, 2, 3, 6))
         rows = 2 * bk * t_len  # both guidance streams
         head_flops = 2.0 * rows * (mc.pitches * c + c * c + c * mc.pitches)
         # the conditioner's lanes are projected once per clip for all layers;
         # each step's gate GEMM contracts over the taps only
         cond_proj_flops = 2.0 * rows * mp * 2 * c * L
         bounds[key] = bound(
-            len(ts) * (stack_flops(rows, c, taps, 0, L) + head_flops) + cond_proj_flops,
-            nbytes(x_Tk, noisek, t_bias, tables, condk, x_Tk, *head) + w_bytes)
+            tablesk.shape[0] * (stack_flops(rows, c, taps, 0, L) + head_flops) + cond_proj_flops,
+            nbytes(x_Tk, noisek, t_biask, tablesk, condk, x_Tk, *head) + w_bytes)
     bounds["k3"] = bound(stack_flops(bt * t_len, c, taps, mp, L),
                          nbytes(x16, tb16, cond16, skip3, xs3, a3) + w_bytes)
     dw_bytes = 4 * (kw.wcat.numel() + kw.wo.numel() + 2 * kw.bo.numel())
@@ -574,16 +888,25 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launch, "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bounds[key]["bound_ms"], "bound_by": bounds[key]["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                "launches_by_path": {p: n[name] for p, n in path_launches.items() if name in n}}
 
     train_src = "diffroll_tpu_torch/csrc/gated_stack_train.cu"
+    # `launches`: the kernel's first path, transcribe for K1 and K2, train
+    # for K3 and K4; `launches_by_path` has every path's own count
+    k2_row = row("k2", "fused_sample", "diffroll_tpu_torch/csrc/sampler.cu",
+                 "diffroll_tpu/ops/sampler_kernel.py:385", launches["fused_sample"], k2_abs,
+                 times["k2_b2_ms"], times["k2_b2_plain_ms"])
+    k2_row.update(ms_b8=times["k2_b8_ms"], plain_ms_b8=times["k2_b8_plain_ms"],
+                  bound_ms_b8=bounds["k2_b8"]["bound_ms"])
+    # K1's error is its single pass's; its step loops' 200-step trajectories beside it
+    k1_row = row("k1", "gated_stack", "diffroll_tpu_torch/csrc/gated_stack.cu",
+                 "diffroll_tpu/ops/gated_stack.py:290", launches["gated_stack"], k1_abs,
+                 times["k1_ms"], times["k1_plain_ms"])
+    k1_row.update(max_abs_err_step_loop=loop_abs)
     print(json.dumps({"kernels": [
-        row("k1", "gated_stack", "diffroll_tpu_torch/csrc/gated_stack.cu",
-            "diffroll_tpu/ops/gated_stack.py:290", launches["gated_stack"], k1_abs,
-            times["k1_ms"], times["k1_plain_ms"]),
-        row("k2", "fused_sample", "diffroll_tpu_torch/csrc/sampler.cu",
-            "diffroll_tpu/ops/sampler_kernel.py:385", launches["fused_sample"], k2_abs,
-            times["k2_b2_ms"], times["k2_b2_plain_ms"]),
+        k1_row,
+        k2_row,
         row("k3", "fwd_saves", train_src, "diffroll_tpu/ops/gated_stack_train.py:49",
             train_launches["fwd_saves"], k3_abs, times["k3_ms"], times["k3_plain_ms"]),
         row("k4", "bwd", train_src, "diffroll_tpu/ops/gated_stack_train.py:388",

@@ -3,11 +3,21 @@
 Commands:
   transcribe  a folder of audio files -> piano rolls + MIDI
               (pretrained_path=<file.ckpt> dataset.audio_path=<dir> device=cuda|cpu)
-  train       fit a model on MAPS / MAESTRO ([spec_roll|unsupervised_pretrained]
-              dataset.root=<dir> task.fused_train=true device=cuda|cpu)
+  train       fit a model on MAPS / MAESTRO, then score the test split
+              ([spec_roll|unsupervised_pretrained] dataset.root=<dir>
+              task.fused_train=true device=cuda|cpu)
+  test        full reverse diffusion over the test split + frame / note F1
+              (pretrained_path=<file.ckpt> dataset.root=<dir>)
+  sample      transcription, inpainting or generation with the trajectory
+              (pretrained_path=<file.ckpt> task.sampling_type=... num_samples=N)
+  sweep       a w x threshold grid over one checkpoint (w_grid=[...]
+              threshold_grid=[...]), or one train + test run per spec dropout
+              (p_grid=[...])
+  serve       an HTTP transcription service with micro-batching
+              (pretrained_path=<file.ckpt> serve.port=8077 serve.max_batch=8)
 
-The JAX package's other entries (test, sample, infer, sweep, distill,
-serve) are ROADMAP items of the port.
+Not ported yet: the JAX package's `distill` and `infer` entries (ROADMAP
+Queue 1 items 15 and 21).
 """
 
 from __future__ import annotations
@@ -16,9 +26,10 @@ import sys
 
 
 def _dispatch(argv) -> int:
-    from .cli import train, transcribe
+    from .cli import sample, serve, sweep, test, train, transcribe
 
-    commands = {"transcribe": transcribe.main, "train": train.main}
+    commands = {"transcribe": transcribe.main, "train": train.main, "test": test.main,
+                "sample": sample.main, "sweep": sweep.main, "serve": serve.main}
     if not argv or argv[0] in ("-h", "--help") or argv[0] not in commands:
         print(__doc__)
         return 0 if argv and argv[0] in ("-h", "--help") else 2

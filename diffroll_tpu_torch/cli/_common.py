@@ -11,13 +11,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..compat.torch_ckpt import (
-    config_from_hparams, read_ckpt, task_updates_from_hparams, weights_only)
+    config_from_hparams, peek_hparams, read_ckpt, task_config_from_hparams,
+    task_updates_from_hparams, weights_only)
 from ..config import DatasetConfig, ExperimentConfig, apply_overrides
 from ..data.amt import MAESTRO, MAPS
 from ..data.custom import Custom
 from ..data.pipeline import DataLoader
 from ..models.base import DiffRollModel
-from ..tasks.diffusion import DiffusionTask
+from ..tasks.diffusion import DiffusionTask, TaskConfig
 from ..train.state import TrainState
 
 
@@ -72,6 +73,21 @@ def build_loader(cfg: ExperimentConfig, dataset, split: str) -> DataLoader:
 
 def task_lr(cfg: ExperimentConfig) -> float:
     return cfg.task.lr
+
+
+def task_threshold(cfg: ExperimentConfig) -> float:
+    """The eval binarisation threshold. (The JAX package's baseline task
+    has its own; that task is not ported.)"""
+    return cfg.task.frame_threshold
+
+
+def stored_task_config(path: str) -> Optional[TaskConfig]:
+    """The task config a checkpoint that the port's `train` wrote records
+    (its `port_config`), read without loading any tensor; None for a
+    published Lightning checkpoint, whose recorded sampler `load_pretrained`
+    has already adopted."""
+    hparams = peek_hparams(path)
+    return task_config_from_hparams(hparams) if hparams.get("port_config") else None
 
 
 def make_run_dir(cfg: ExperimentConfig, kind: str) -> pathlib.Path:

@@ -9,9 +9,10 @@ recipes (counterpart of `diffroll_tpu/cli/train.py`).
         dual=true dataset2.name=MAESTRO             # the dual-loss recipe
 
 `task.fused_train=true` runs the residual stack through the training kernels
-on a CUDA device. The JAX package goes on to evaluate the test split after
-`fit`; that needs the `test` entry, which is not ported yet, so this entry
-ends after `fit` and says so on stderr.
+on a CUDA device. After `fit` the test split is evaluated as `test` would
+evaluate the checkpoint (on the EMA weights when `trainer.ema_decay` is set)
+and `test_metrics.json` is written; a layout without a test split skips it
+with one stderr line.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..data.custom import DoubleDataset
 from ..train import Checkpointer, TrainState, fit
 from ..utils.logging import MetricLogger
 from . import _common
+from .test import run_test
 
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
@@ -69,9 +71,21 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     state = fit(task, state, train_loader, trainer=cfg.trainer, val_loader=val_loader,
                 checkpointer=ckpt, logger=logger,
                 config_record=_common.config_record(cfg))
+
+    # the test split, on what `test pretrained_path=<last.ckpt>` loads: the
+    # EMA weights when the run kept them (the returned state keeps the raw ones)
+    eval_model, eval_task = model, task
+    ema = ckpt.load_extra("ema", "last") if cfg.trainer.ema_decay else None
+    if ema is not None:
+        eval_model, eval_task = _common.setup_model_task(cfg, device)
+        eval_model.net.load_state_dict(ema)
+    try:
+        metrics = run_test(cfg, eval_model, eval_task)
+        (run_dir / "test_metrics.json").write_text(json.dumps(metrics, indent=2))
+        print(json.dumps(metrics))
+    except FileNotFoundError as e:
+        print(f"skipping test split: {e}", file=sys.stderr)
     logger.close()
-    print("train: the test-split evaluation after fit is not ported yet; stopping after fit",
-          file=sys.stderr)
     print(json.dumps({"run_dir": str(run_dir), "steps": state.step,
                       "last": str(ckpt.resolve("last"))}))
     return state

@@ -18,33 +18,15 @@ import pathlib
 import sys
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..compat.torch_ckpt import load_lightning
-from ..config import ExperimentConfig, from_argv
-from ..eval.notes import extract_notes
-from ..io.midi import write_midi
+from ..config import from_argv
 from ..io.wav import read_wav, resample
 from ..tasks.diffusion import DiffusionTask
 from ..tasks.transcribe import transcribe_long
 from ._common import make_run_dir, resolve_device
-
-
-def export_clip(run_dir: pathlib.Path, name: str, roll: np.ndarray,
-                cfg: ExperimentConfig) -> int:
-    """Save one roll as npz + decoded MIDI; returns the note count. Notes
-    shorter than `task.generation_filter` seconds are dropped."""
-    np.savez_compressed(run_dir / f"{name}.npz", roll=roll)
-    pitches, intervals = extract_notes(roll, roll, cfg.task.frame_threshold,
-                                       cfg.task.frame_threshold)
-    scaling = cfg.dataset.hop_length / cfg.dataset.sampling_rate
-    keep = (intervals[:, 1] - intervals[:, 0]) * scaling > cfg.task.generation_filter
-    pitches, intervals = pitches[keep], intervals[keep]
-    sec = intervals.astype(np.float64) * scaling
-    write_midi(str(run_dir / f"{name}.mid"),
-               (pitches + 21).tolist(), [tuple(iv) for iv in sec])
-    return int(len(pitches))
+from .sample import export_clip
 
 
 def main(argv: Optional[List[str]] = None) -> pathlib.Path:

@@ -4,6 +4,7 @@ from .torch_ckpt import (
     grads_from_jax,
     load_adam_state,
     load_lightning,
+    peek_hparams,
     plain_hparams,
     read_ckpt,
     state_dict_from_jax,
@@ -17,6 +18,7 @@ __all__ = [
     "grads_from_jax",
     "load_adam_state",
     "load_lightning",
+    "peek_hparams",
     "plain_hparams",
     "read_ckpt",
     "state_dict_from_jax",

@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import pickle
+import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -207,6 +208,39 @@ def read_ckpt(path: str) -> Dict[str, Any]:
     hparams = plain_hparams(ckpt.get("hyper_parameters", {}))
     ckpt["hyper_parameters"] = hparams if isinstance(hparams, dict) else {}
     return ckpt
+
+
+class _TensorlessUnpickler(_TolerantUnpickler):
+    """Unpickles a torch zip archive's `data.pkl` without its storages:
+    every tensor comes back as None."""
+
+    def find_class(self, module, name):
+        if module == "torch._utils" and name.startswith("_rebuild"):
+            return _no_tensor
+        return super().find_class(module, name)
+
+    def persistent_load(self, pid):
+        return None
+
+
+def _no_tensor(*args, **kwargs):
+    return None
+
+
+def peek_hparams(path: str) -> Dict[str, Any]:
+    """A checkpoint's `hyper_parameters`, coerced to plain Python, read
+    without loading any tensor: of a torch zip archive only the pickle is
+    read (the storages stay on disk); an older single-pickle file is read
+    whole."""
+    if not zipfile.is_zipfile(path):
+        return read_ckpt(path)["hyper_parameters"]
+    with zipfile.ZipFile(path) as zf:
+        name = next(n for n in zf.namelist() if n.rsplit("/", 1)[-1] == "data.pkl")
+        ckpt = _TensorlessUnpickler(io.BytesIO(zf.read(name))).load()
+    if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
+        return {}
+    hparams = plain_hparams(ckpt.get("hyper_parameters", {}))
+    return hparams if isinstance(hparams, dict) else {}
 
 
 def weights_only(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

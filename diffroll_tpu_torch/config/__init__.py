@@ -1,5 +1,5 @@
 from .experiment import (
-    DataloaderConfig, DatasetConfig, ExperimentConfig, TrainerConfig, asdict_flat)
+    DataloaderConfig, DatasetConfig, ExperimentConfig, ServeConfig, TrainerConfig, asdict_flat)
 from .overrides import apply_overrides, coerce, parse_argv
 from .presets import PRESETS, compose, from_argv
 
@@ -8,6 +8,7 @@ __all__ = [
     "DatasetConfig",
     "ExperimentConfig",
     "PRESETS",
+    "ServeConfig",
     "TrainerConfig",
     "apply_overrides",
     "asdict_flat",

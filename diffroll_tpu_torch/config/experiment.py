@@ -3,10 +3,11 @@
 dataset / dataloader / trainer groups, with the JAX package's defaults.
 
 Left out until their slices are ported: `task_type` / `baseline` (the
-baseline task), `serve`, `distill`, `num_samples`, `audio_format`, and the
-trainer's `model_axis`, `data_axis`, `rng_impl`, `adam_moments_dtype`. Left out
-for good: `dataloader.transfer` (batches always cross as float32 through
-pinned memory with a non-blocking copy, `data/pipeline.to_device`).
+baseline task), `distill`, and the trainer's `model_axis`, `data_axis`,
+`rng_impl`, `adam_moments_dtype`. Left out for good: `dataloader.transfer`
+(training batches always cross as float32 through pinned memory with a
+non-blocking copy, `data/pipeline.to_device`) and `serve.compile_cache_dir`
+(the XLA compilation cache; eager PyTorch compiles nothing per shape).
 `device` is the port's own knob.
 """
 
@@ -87,6 +88,26 @@ class TrainerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Serving-entry knobs (`python -m diffroll_tpu_torch serve`)."""
+
+    host: str = "127.0.0.1"
+    port: int = 8077
+    max_batch: int = 8            # windows per sampler batch (short batches zero-padded)
+    max_wait_ms: float = 25.0     # micro-batching window after the first job
+    overlap_frames: int = 32      # window overlap for stitching
+    max_body_mb: float = 64.0     # request-body cap (HTTP 413 above)
+    # the waveform batch's host-to-device format: int16 halves the transfer,
+    # is dequantised on the card and is exact for 16-bit PCM sources;
+    # float32 for exact f32 inputs
+    transfer: str = "int16"
+    pipeline_depth: int = 2       # batches in flight (1 = serialised)
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """Root config: everything a CLI entry needs."""
 
@@ -102,6 +123,12 @@ class ExperimentConfig:
     pretrained_path: Optional[str] = None
     # dual-dataset fine-tuning recipe
     dual: bool = False
+    # clips the sampling entry writes, in every mode
+    num_samples: int = 16
+    # the test entry's audio artifacts: "mp3" encodes through an ffmpeg /
+    # lame binary where one exists and writes 16-bit wav otherwise
+    audio_format: str = "mp3"
+    serve: ServeConfig = ServeConfig()
     # where the entry point runs: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"
 

@@ -87,17 +87,31 @@ class DiffusionTask:
         if config.sampling_type not in SAMPLER_TABLE:
             raise KeyError(f"unknown sampler {config.sampling_type!r}; "
                            f"choices: {sorted(SAMPLER_TABLE)}")
-        self._fused = None  # (device, stack weights, head weights, kernel weights)
+        # (device, stack weights, head weights, kernel weights, tables,
+        # t_bias, stochastic): see _fused_weights
+        self._fused = None
 
     def _fused_weights(self):
-        """The stacked weights the fused routes read, prepared once per
-        device (the bf16 kernel operands only on CUDA)."""
+        """The operands the fused routes read, prepared once per device: the
+        stacked weights, the head's, the bf16 kernel operands (on CUDA only),
+        and the whole-process sampler's per-step tables (n, 3), FiLM biases
+        t_bias (n, L, C) and whether it draws noise. Kept on the device, so
+        a reverse process copies nothing from the host for them: such a
+        copy from pageable memory waits for the stream, and so for the
+        batch before it."""
         net = self.model.net
         dev = net.input_projection.weight.device
         if self._fused is None or self._fused[0] != dev:
+            cfg = self.config
             w = stack_weights(net)
             kw = kernel_weights(w) if dev.type == "cuda" else None
-            self._fused = (dev, w, head_weights(net), kw)
+            ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
+            tables = sampler_tables(self.schedule, cfg.sampling_type, ts, previous_timesteps(ts))
+            t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev),
+                           net.diffusion_embedding)                          # (n, E)
+            t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]  # (n, L, C)
+            self._fused = (dev, w, head_weights(net), kw, torch.from_numpy(tables).to(dev),
+                           t_bias, bool(np.any(tables[:, 2] != 0.0)))
         return self._fused[1:]
 
     # ------------------------------------------------------------- training
@@ -156,7 +170,8 @@ class DiffusionTask:
         """
         cfg = self.config
         if train:
-            self._fused = None  # the sampler's prepared weights go stale as training moves on
+            # the sampler's prepared weights go stale as training moves on
+            self._fused = None
         dual = isinstance(batch, (tuple, list))
         b1 = batch[0] if dual else batch
 
@@ -280,7 +295,7 @@ class DiffusionTask:
             cfg.use_fused and supports_fused(mc))
 
         if fused:
-            w, head, kw = self._fused_weights()
+            w, head, kw = self._fused_weights()[:3]
 
             def net(x, t_vec, c):
                 return fused_forward(model.net, x, t_vec, c, dilations=mc.dilations(),
@@ -359,20 +374,10 @@ class DiffusionTask:
         mc = self.model.config
         _, _, guided, _ = SAMPLER_TABLE[cfg.sampling_type]
         generation = cfg.sampling_type.startswith("generation")
-
-        ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
-        tables_np = sampler_tables(self.schedule, cfg.sampling_type, ts,
-                                   previous_timesteps(ts))
-        stochastic = bool(np.any(tables_np[:, 2] != 0.0))
-        w, head, kw = self._fused_weights()
-        dev = x_T.device
-        t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev),
-                       self.model.net.diffusion_embedding)             # (n, E)
-        t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]  # (n, L, C)
+        w, head, kw, tables, t_bias, stochastic = self._fused_weights()
         if cond is not None and generation:
             cond = torch.full_like(cond, -1.0)
         return fused_sample(
-            x_T, noise if stochastic else None, t_bias,
-            torch.from_numpy(tables_np).to(dev), w, head, cond, mc.dilations(),
-            guided=bool(guided and cond is not None), w_guidance=float(cfg.w),
-            stochastic=stochastic, kweights=kw)
+            x_T, noise if stochastic else None, t_bias, tables, w, head, cond,
+            mc.dilations(), guided=bool(guided and cond is not None),
+            w_guidance=float(cfg.w), stochastic=stochastic, kweights=kw)

@@ -22,7 +22,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..compat.torch_ckpt import config_from_hparams, read_ckpt, task_config_from_hparams
+from ..compat.torch_ckpt import (
+    config_from_hparams, peek_hparams, read_ckpt, task_config_from_hparams)
 
 
 def _jsonable(obj: Any) -> Any:
@@ -115,8 +116,9 @@ class Checkpointer:
         return read_ckpt(str(self.resolve(step)))
 
     def peek_config(self, step=None) -> Dict[str, Any]:
-        """The stored config record: {'model_name', 'model', 'task'}."""
-        hparams = self.load(step)["hyper_parameters"]
+        """The stored config record: {'model_name', 'model', 'task'}, read
+        without loading any tensor (`compat.peek_hparams`)."""
+        hparams = peek_hparams(str(self.resolve(step)))
         if not hparams:
             return {}
         port = hparams.get("port_config", {})

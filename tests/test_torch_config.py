@@ -12,6 +12,7 @@ import torch
 
 from diffroll_tpu import config as jconfig
 from diffroll_tpu import models as jmodels
+from diffroll_tpu.config import experiment as jexperiment
 from diffroll_tpu.config import overrides as joverrides
 from diffroll_tpu.config.experiment import asdict_flat as j_asdict_flat
 from diffroll_tpu.diffusion import loop as jloop
@@ -162,16 +163,28 @@ TRAINER_LEFT_OUT = ("model_axis", "data_axis", "rng_impl", "adam_moments_dtype")
 # The packed host-to-device batch formats are not ported: batches cross as float32.
 DATALOADER_LEFT_OUT = ("transfer",)
 # Root fields of slices that are not ported yet; `device` is the port's own.
-ROOT_LEFT_OUT = ("task_type", "baseline", "serve", "distill", "num_samples", "audio_format")
+ROOT_LEFT_OUT = ("task_type", "baseline", "distill")
+# The XLA compilation cache has no counterpart in the port.
+SERVE_LEFT_OUT = ("compile_cache_dir",)
 
 
 @pytest.mark.parametrize("group,left_out", [
     ("DatasetConfig", ()), ("DataloaderConfig", DATALOADER_LEFT_OUT),
-    ("TrainerConfig", TRAINER_LEFT_OUT)])
+    ("TrainerConfig", TRAINER_LEFT_OUT), ("ServeConfig", SERVE_LEFT_OUT)])
 def test_config_groups_match(group, left_out):
-    _assert_same_fields(getattr(jconfig, group)(), getattr(tconfig, group)(), left_out)
+    _assert_same_fields(getattr(jexperiment, group)(), getattr(tconfig, group)(), left_out)
     if group == "DatasetConfig":
         assert tconfig.DatasetConfig().audio_ext == "wav"
+
+
+def test_serve_config_has_no_compile_cache():
+    """The XLA compilation cache is not ported: no field, and the override
+    that would set it is refused."""
+    assert "compile_cache_dir" not in {f.name for f in dataclasses.fields(tconfig.ServeConfig)}
+    with pytest.raises(KeyError, match="unknown config key"):
+        tconfig.compose("sampling", {"serve.compile_cache_dir": "/tmp/cache"})
+    cfg = tconfig.compose("sampling", {"serve.transfer": "float32", "serve.max_batch": "4"})
+    assert cfg.serve.transfer == "float32" and cfg.serve.max_batch == 4
 
 
 def _assert_same_experiment(j, t):
@@ -180,6 +193,8 @@ def _assert_same_experiment(j, t):
     assert jf == tf
     assert j.model_name == t.model_name and j.pretrained_path == t.pretrained_path
     assert j.dual == t.dual and t.device == "cuda"
+    assert j.num_samples == t.num_samples and j.audio_format == t.audio_format
+    _assert_same_fields(j.serve, t.serve, SERVE_LEFT_OUT)
     _assert_same_fields(j.model, t.model)
     _assert_same_fields(j.task, t.task)
     _assert_same_fields(j.dataset, t.dataset)

@@ -22,6 +22,7 @@ from diffroll_tpu_torch.ops.fused_forward import _embed
 from diffroll_tpu_torch.ops.sampler_kernel import (
     fused_sample, fused_sample_ref, head_weights, sampler_tables)
 from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+from diffroll_tpu_torch.tasks.transcribe import transcribe_long
 
 # the module (the package re-exports a function of the same name)
 tgs = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
@@ -52,9 +53,10 @@ def _rel(out, ref):
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3, True), (3, 100, 128, 4, True),
                                    (2, 64, 64, 3, False), (2, 640, 512, 15, True),
                                    (2, 200, 64, 4, True), (3, 8, 64, 4, True),
-                                   (1, 130, 128, 5, False)],
+                                   (1, 130, 128, 5, False), (8, 640, 512, 15, True)],
                          ids=["small", "ragged_rows", "nocond", "flagship",
-                              "last_tile_crosses_T", "dilation_reaches_T", "two_rows_in_last_tile"])
+                              "last_tile_crosses_T", "dilation_reaches_T", "two_rows_in_last_tile",
+                              "flagship_b8"])
 def test_stack_kernel_matches_plain(cuda_f32, shape):
     dev = cuda_f32
     b, t, c, layers, with_cond = shape
@@ -310,3 +312,89 @@ def test_gated_stack_fn_routes(cuda_f32, impl):
     assert launched == ((1, 1) if impl == "cuda" else (1, 0))
     for g, r in zip(got, grads(wq, "plain")):
         assert _rel(g, r) < BF16_GATE
+
+
+@pytest.mark.gpu
+def test_stack_kernel_on_generation_rows(cuda_f32):
+    """K1 as generation runs it: 8 unguided sequences of the flagship whose
+    conditioner is spec := -1 everywhere."""
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll").to(dev)
+    w = tgs.stack_weights(tm.net)
+    x = torch.randn(8, 640, 512, device=dev)
+    tb = 0.1 * torch.randn(15, 8, 512, device=dev)
+    cond = torch.full((8, 640, 229), -1.0, device=dev)
+    dil = tm.config.dilations()
+    with torch.no_grad():
+        out = tgs.gated_stack(x, tb, cond, w, dil, kweights=tgs.kernel_weights(w))
+        ref = tgs.gated_stack_ref(x, tb, cond, w, dil)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < BF16_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,steps", [("cfdg_ddpm_x0", None), ("generation_ddpm_x0", None),
+                                        ("cfdg_ddim_x0", 5)],
+                         ids=["guided", "generation", "deterministic"])
+def test_fused_sample_flagship_batch8(cuda_f32, name, steps):
+    """K2 at the flagship's widths and B=8 (the test and serving batch:
+    10,240 rows a stream), guided (S=2), unguided generation (S=1, spec := -1)
+    and deterministic (no noise): against the plain process on the kernels'
+    own weight values, the same bits on a second run, and the task's route
+    gives the kernel's result; then the step loop (K1 per step) against the
+    same plain trajectory."""
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", timesteps=STEPS).to(dev)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    cfg = TaskConfig(timesteps=STEPS, sampling_type=name, sampling_steps=steps, w=0.5)
+    task = DiffusionTask(tm, cfg)
+    generation = name.startswith("generation")
+    x_T = torch.randn(8, 640, 88, device=dev)
+    wav = None if generation else 0.1 * torch.randn(8, 640 * 512, device=dev)
+    with torch.no_grad():
+        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        noise = torch.randn(tables.shape[0], 8, 640, 88, device=dev) if stochastic else None
+        cond = (torch.full((8, 640, 229), -1.0, device=dev) if generation
+                else tm.conditioner(waveform=wav))
+        args = (x_T, noise, t_bias, tables, w, head, cond, tm.config.dilations(),
+                not generation, 0.5, stochastic)
+        wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+        before = (fused_sample.launches, tgs.gated_stack.launches)
+        out = fused_sample(*args, kweights=kw)
+        again = fused_sample(*args, kweights=kw)
+        ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
+    via_task = task.sample(x_T, waveform=wav, noise=noise)[0]
+    n = tables.shape[0]
+    loop = DiffusionTask(tm, cfg.replace(use_megakernel=False)).sample(
+        x_T, waveform=wav, noise=noise)[0]
+    launched = (fused_sample.launches - before[0], tgs.gated_stack.launches - before[1])
+    torch.cuda.synchronize()
+    assert stochastic == (name != "cfdg_ddim_x0")
+    assert launched == (3, 4 * n)  # three reverse processes, then the loop's n passes
+    assert torch.isfinite(out).all() and _rel(out, ref) < BF16_GATE
+    assert torch.equal(out, again) and torch.equal(via_task, out)
+    assert _rel(loop, ref) < BF16_GATE
+
+
+@pytest.mark.gpu
+def test_transcribe_long_on_the_card_at_batch8(cuda_f32):
+    """Eight windows of one recording through `transcribe_long` in one batch
+    of 8 (K2 at B=8) against the step loop on the same draws."""
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=128, residual_layers=4,
+                       timesteps=STEPS).to(dev)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    audio = (0.1 * torch.randn(8 * 640 * 512 - 7 * 32 * 512)).numpy()
+    rolls = []
+    for mk in (True, False):
+        task = DiffusionTask(tm, TaskConfig(timesteps=STEPS, w=0.5, use_megakernel=mk))
+        before = fused_sample.launches
+        rolls.append(transcribe_long(task, audio, torch.Generator(device=dev).manual_seed(1),
+                                     batch_size=8, overlap_frames=32))
+        assert fused_sample.launches - before == (1 if mk else 0)
+    assert rolls[0].shape == (8 * 640 - 7 * 32, 88)
+    ref = torch.from_numpy(rolls[1])
+    assert _rel(torch.from_numpy(rolls[0]), ref) < BF16_GATE
