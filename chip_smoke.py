@@ -44,44 +44,74 @@ exits non-zero):
                 batch wall time. The same again with max_wait_ms=100, as a
                 labelled comparison; then a detailed_timing service for the
                 mean compute time of a batch (sum_compute_s)
-  9. k1         the gated-stack kernel vs its plain version at the flagship
+  9. distill    `diffroll_tpu_torch.cli.distill.main` on the checkpoint phase 5
+                wrote, over its corpus, at full width (B=16,
+                task.fused_train=true, distill.start_steps=9 distill.stages=2
+                distill.steps_per_stage=3): stage 1 folds CFG (w=0.5) into a
+                9-step student, stage 2 distils it to 5 steps. Launch counters
+                reset just before, read just after: K1 twice a step (the
+                guided teacher as one forward of 32 sequences), K3 and K4
+                once; the logged losses finite; both stage checkpoints
+                written. Then `cli.test.main` on each student (ddim_x0, its
+                steps, w=0): one test batch of 8 windows, K2 once, finite
+                metrics. Then one distill step's ms by CUDA events (median of
+                5), guided (9 steps) and unguided (5)
+ 10. baseline   `diffroll_tpu_torch.cli.train.main baseline` at full width
+                (DiffRollBaseline: 512 x 15, kernel 7, dilation 1) for 3 steps
+                through the nn.Modules, then its test split (the 200-step walk
+                at B=8); no kernel launched. Then one of its training steps at
+                B=16 and the walk at B=8 by CUDA events
+ 11. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 10. k2         the whole-process sampler vs its plain version at B=1 and at
+ 12. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 11. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 13. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 12. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 14. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 13. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 14. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 15. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 16. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
+ 17. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+                stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
+                0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 10: the error against the unrounded f32 weights,
+     beside them in phase 12: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 15. k3         the training forward-with-saves kernel vs its plain version at
+ 18. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 16. k4         the training backward kernel vs its plain version from the same
+ 19. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+                512), the conditional rows then spec := -1: rel < 0.05 and the
+                same bits on a second run
+ 20. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 17. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 21. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 18. times      warm median times of the four kernels and their plain versions
-                (K2 at B=1, B=2 and B=8; the summary line gives B=2, and B=8
-                under `*_b8`), and of a whole training step at B=16 by three
+ 22. distill_grads one guided distill loss + backward at B=16 with fixed
+                transitions and noise: the teacher through K1 and the student
+                through K3 + K4, against both through the nn.Modules on the
+                bf16-rounded weights: every student gradient rel < 0.05, the
+                losses within 1e-2 relative
+ 23. times      warm median times of the four kernels and their plain versions
+                (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
+                5-step students at B=8; the summary line gives B=2, and B=8
+                under `*_b8`), of a whole training step at B=16 by three
                 routes: K3 + K4, K3 + the plain backward, autograd through the
-                nn.Modules (f32; and once more with TF32 products allowed);
+                nn.Modules (f32; and once more with TF32 products allowed),
+                and of phase 9's distill steps;
                 under `gemm`, the stack's two GEMM kernels alone at M = 1,280
                 and M = 2,560 rows (us per call, TFLOP/s, tiles and waves)
                 with, as a yardstick only, one bf16 `torch.matmul` of the same
@@ -99,13 +129,15 @@ PyTorch call computes any of the four functions. A kernel's `launches` is
 its count on its first path, transcribe for K1 and K2, train for K3 and K4;
 `launches_by_path` gives the count of each user-facing path that the script
 drives with the counters reset just before and read just after (transcribe,
-train, test, sample, serve). K1's `max_abs_err` is its single pass's;
+train, test, sample, serve, distill, distill_test: the students' test runs,
+baseline). K1's `max_abs_err` is its single pass's;
 `max_abs_err_step_loop` is the largest of its step loops' 200-step
 trajectories against the plain ones.
 """
 
 from __future__ import annotations
 
+import copy
 import importlib
 import io
 import json
@@ -132,6 +164,8 @@ TRAIN_STEPS = 3
 TEST_RECORDINGS = 4   # of 21 s: two 640-frame windows each, one test batch of 8
 SERVE_BATCH = 8       # serve.max_batch's default, and dataloader.test_batch_size's
 STEPS = 200
+DISTILL_STAGES = (9, 5)   # distill.start_steps=9 distill.stages=2: CFG folded into the first
+DISTILL_STEPS = 3         # optimizer steps per stage
 
 
 def phase(name: str, **fields) -> None:
@@ -448,6 +482,158 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
     return default["launches"]
 
 
+def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
+                      kernels) -> tuple:
+    """`cli.distill.main` on the checkpoint `train` wrote, over its corpus:
+    two stages (9 steps folding CFG at w=0.5, then 5) of DISTILL_STEPS steps
+    each, the teacher on K1 and the student on K3 + K4; then `cli.test.main`
+    on each student (ddim_x0, its own steps, w=0): one test batch of 8
+    windows through K2. Then each stage's step ms by CUDA events on a fixed
+    batch. Returns the launch counts of the distill run and of the students'
+    test runs."""
+    import contextlib
+    import copy
+    import re
+
+    from diffroll_tpu_torch.cli import distill as cli_distill
+    from diffroll_tpu_torch.cli import test as cli_test
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.diffusion.distill import distill_grids
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+    from diffroll_tpu_torch.train.distill import make_distill_loss
+
+    gated_stack, fused_sample, fwd_saves, bwd = kernels
+    reset_launches(*kernels)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        summary = cli_distill.main([
+            f"pretrained_path={ckpt}", f"dataset.root={data}", "task.fused_train=true",
+            f"distill.start_steps={DISTILL_STAGES[0]}", f"distill.stages={len(DISTILL_STAGES)}",
+            f"distill.steps_per_stage={DISTILL_STEPS}", "device=cuda",
+            f"dataloader.train_batch_size={TRAIN_BATCH}", f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(log.getvalue(), file=sys.stderr, end="")
+    launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches,
+                "fwd_saves": fwd_saves.launches, "bwd": bwd.launches}
+    n_steps = len(DISTILL_STAGES) * DISTILL_STEPS
+    # the teacher twice a step (one forward of 2B rows when guided), the
+    # student's forward-with-saves and backward once
+    if launches != {"gated_stack": 2 * n_steps, "fused_sample": 0, "fwd_saves": n_steps,
+                    "bwd": n_steps}:
+        raise RuntimeError(f"distill did not launch K1 twice and K3, K4 once a step: "
+                           f"{launches}")
+    losses = [float(v) for v in re.findall(r"distill_loss (\S+)", log.getvalue())]
+    if summary["stages"] != list(DISTILL_STAGES) or len(losses) != 2 * len(DISTILL_STAGES) \
+            or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"distill: stages {summary['stages']}, losses {losses}")
+    run_dir = pathlib.Path(summary["run_dir"])
+    stage_ckpts = {n: run_dir / f"distilled_{n}steps" / "checkpoints" / "last.ckpt"
+                   for n in DISTILL_STAGES}
+    if not all(c.exists() for c in stage_ckpts.values()):
+        raise RuntimeError(f"distill wrote no stage checkpoint: {stage_ckpts}")
+
+    tests, test_launches = {}, {"gated_stack": 0, "fused_sample": 0}
+    for n, stage_ckpt in stage_ckpts.items():
+        reset_launches(gated_stack, fused_sample)
+        t0 = time.perf_counter()
+        metrics = cli_test.main([f"pretrained_path={stage_ckpt}", "task.sampling_type=ddim_x0",
+                                 f"task.sampling_steps={n}", "task.w=0", f"dataset.root={data}",
+                                 "device=cuda", "audio_format=wav", f"trainer.output_dir={out}"])
+        torch.cuda.synchronize()
+        got = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        # one batch of 8 windows: K2 once, its n steps one stream each
+        if got != {"gated_stack": n, "fused_sample": 1} or metrics["n_clips"] != TEST_RECORDINGS \
+                or not all(math.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"test on the {n}-step student: {got}, {metrics}")
+        tests[f"{n}_steps"] = {"seconds": time.perf_counter() - t0, "launches": got,
+                               "note_f1": metrics["note_f1"], "frame_f1": metrics["frame_f1"]}
+        for k in test_launches:
+            test_launches[k] += got[k]
+
+    # one distill step by CUDA events, guided and unguided, on a fixed batch
+    dev = torch.device("cuda")
+    teacher, _ = load_lightning(str(ckpt), device=dev)
+    teacher.requires_grad_(False)
+    mc = teacher.config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    batch = {"frame": (torch.rand(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
+                                  generator=gen) > 0.95).float(),
+             "audio": 0.1 * torch.randn(TRAIN_BATCH, mc.frames * mc.mel.hop_length, device=dev,
+                                        generator=gen)}
+    step_ms = {}
+    for n, guided in zip(DISTILL_STAGES, (True, False)):
+        student = copy.deepcopy(teacher).requires_grad_(True)
+        task = DiffusionTask(student, TaskConfig(timesteps=mc.timesteps, fused_train=True))
+        loss_fn = make_distill_loss(task, teacher, *distill_grids(mc.timesteps, n),
+                                    guided=guided, w=W_GUIDANCE)
+        state = TrainState.create(student, 1e-6)
+        step = make_train_step(loss_fn)
+        step_ms["guided" if guided else "unguided"] = time_ms(
+            lambda: step(state, batch, gen), 5, 2)
+        del student, task, state
+    phase("distill", seconds=seconds, stages=summary["stages"], steps_per_stage=DISTILL_STEPS,
+          batch=TRAIN_BATCH, losses=losses, launches=launches, student_tests=tests,
+          step_ms_by_events=step_ms)
+    return launches, test_launches, step_ms
+
+
+def run_baseline_phase(data: pathlib.Path, out: pathlib.Path, kernels) -> dict:
+    """`cli.train.main baseline` at full width (DiffRollBaseline: 512 x 15,
+    kernel 7, dilation 1) for TRAIN_STEPS steps through the nn.Modules, then
+    its test split (one batch of 8 windows, the 200-step walk). No kernel may
+    launch. Then a training step and the walk by CUDA events."""
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.tasks import BaselineConfig, BaselineTask
+    from diffroll_tpu_torch.train import make_train_step
+
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    state = cli_train.main([
+        "baseline", f"dataset.root={data}", "device=cuda", "trainer.max_epochs=1",
+        "trainer.check_val_every_n_epoch=1", "trainer.log_every_n_steps=1",
+        f"dataloader.train_batch_size={TRAIN_BATCH}", "audio_format=wav",
+        f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    (run_dir,) = out.glob("*/*/train-*")
+    records = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/amt_loss"] for r in records if "train/amt_loss" in r]
+    metrics_path = run_dir / "test_metrics.json"
+    metrics = json.loads(metrics_path.read_text()) if metrics_path.exists() else {}
+    if state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise RuntimeError(f"baseline took {state.step} steps, losses {losses}")
+    if metrics.get("n_clips") != TEST_RECORDINGS or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"baseline test split: {metrics}")
+    if any(launches.values()):
+        raise RuntimeError(f"the baseline launched a kernel: {launches}")
+    # by CUDA events on the trained model: one training step at B=16 and the
+    # test's evaluation walk over one batch of 8 windows (200 forwards)
+    model, dev = state.model, torch.device("cuda")
+    mc = model.config
+    task = BaselineTask(model, BaselineConfig())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    batch = {"frame": (torch.rand(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
+                                  generator=gen) > 0.95).float(),
+             "audio": 0.1 * torch.randn(TRAIN_BATCH, mc.frames * mc.mel.hop_length, device=dev,
+                                        generator=gen)}
+    step = make_train_step(task.loss_fn)
+    step_ms = time_ms(lambda: step(state, batch, gen), 5, 2)
+    x_T = torch.randn(SERVE_BATCH, mc.frames, mc.pitches, device=dev, generator=gen)
+    walk_ms = time_ms(lambda: task.sample(x_T, waveform=batch["audio"][:SERVE_BATCH],
+                                          generator=gen), 1, 1)
+    phase("baseline", seconds=seconds, steps=TRAIN_STEPS, batch=TRAIN_BATCH, train_losses=losses,
+          model=mc.name, kernel_size=mc.kernel_size,
+          test_metrics={k: metrics[k] for k in ("n_clips", "note_f1", "frame_f1")},
+          step_ms_by_events=step_ms, walk_b8_ms_by_events=walk_ms, launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -468,8 +654,11 @@ def main() -> int:
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
     from diffroll_tpu_torch.ops.sampler_kernel import (
         fused_sample, fused_sample_ref, head_weights, sampler_tables)
+    from diffroll_tpu_torch.diffusion.distill import distill_grids
+    from diffroll_tpu_torch.diffusion.samplers import SAMPLER_TABLE
     from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
     from diffroll_tpu_torch.train import TrainState, make_train_step
+    from diffroll_tpu_torch.train.distill import make_distill_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions run full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -622,6 +811,12 @@ def main() -> int:
                          "sample": run_sample_phase(last_ckpt, tmp / "data", tmp / "sample_out",
                                                     mc.frames, kernels),
                          "serve": run_serve_phase(ckpt, sr, sr / mc.mel.hop_length, kernels)}
+        all_kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+        (path_launches["distill"], path_launches["distill_test"],
+         distill_step_ms) = run_distill_phase(last_ckpt, tmp / "data", tmp / "distill_out",
+                                              all_kernels)
+        path_launches["baseline"] = run_baseline_phase(tmp / "data", tmp / "baseline_out",
+                                                       all_kernels)
 
     net = model.net
     dil = mc.dilations()
@@ -667,17 +862,19 @@ def main() -> int:
             t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
             stochastic = bool((tables[:, 2] != 0).any())
             generation = sampling_type.startswith("generation")
+            guided = SAMPLER_TABLE[sampling_type][2]
             wav = None if generation else torch.stack(
                 [torch.from_numpy(chord_wav(window_s, sr, SEED + 1 + i))
                  for i in range(bk)]).to(dev)
             x_T = torch.randn(bk, t_len, mc.pitches, device=dev, generator=gen)
             noise = (torch.randn((len(ts), bk, t_len, mc.pitches), device=dev, generator=gen)
                      if stochastic else None)
-            # generation conditions on spec := -1 with one stream; the others
-            # are guided: the conditional stream and the spec := -1 one
+            # generation conditions on spec := -1 with one stream; the guided
+            # samplers run the conditional stream and the spec := -1 one; a
+            # distilled student (ddim_x0) the conditional stream alone
             cond = (torch.full((bk, t_len, mc.n_mels), -1.0, device=dev) if generation
                     else task.build_conditioner(x_T, wav))
-            return (x_T, noise, t_bias, tables, w, head, cond, dil, not generation, W_GUIDANCE,
+            return (x_T, noise, t_bias, tables, w, head, cond, dil, guided, W_GUIDANCE,
                     stochastic), wav
 
         def step_loop(sampling_type, steps, x_T, wav, noise):
@@ -741,6 +938,12 @@ def main() -> int:
         # B=2 and at the sample path's B=8
         for bk in (2, 8):
             loop_abs = max(loop_abs, hold_k2("k1_uncond", "generation_ddpm_x0", None, bk, True)[2])
+        # a distilled student as `test` samples it: B=8, one stream, ddim_x0
+        # (no noise) on the 9- and 5-step grids
+        student_args = {}
+        for n in DISTILL_STAGES:
+            student_args[n], abs_err, _ = hold_k2("k2_student", "ddim_x0", n, SERVE_BATCH)
+            k2_abs = max(k2_abs, abs_err)
 
         # ---- k3 / k4 at the training batch
         bt = TRAIN_BATCH
@@ -760,6 +963,24 @@ def main() -> int:
             raise RuntimeError(f"K3 disagrees with its plain version or with K1: {k3_errs}")
         k3_abs = k3_errs["skip"][1]
         del skip_r, xs_r, a_r
+
+        # ---- k1_s32: the guided teacher of a distill step, one forward over
+        # 2B = 32 sequences (the conditional rows, then spec := -1)
+        x32 = torch.cat([x16, torch.randn(bt, t_len, c, device=dev, generator=gen)])
+        tb32 = torch.cat([tb16, tb16], dim=1)
+        cond32 = torch.cat([cond16, torch.full_like(cond16, -1.0)])
+        k1_32 = gated_stack(x32, tb32, cond32, w, dil, kweights=kw)
+        k1_32_same = torch.equal(k1_32, gated_stack(x32, tb32, cond32, w, dil, kweights=kw))
+        k1_32_ref = gated_stack_ref(x32, tb32, cond32, wq, dil)
+        torch.cuda.synchronize()
+        k1_32_rel, k1_32_abs = rel_err(k1_32, k1_32_ref)
+        phase("k1_s32", shape=list(x32.shape), tiles_waves=list(gs_module.tile_waves(
+            2 * bt, t_len, c)), rel=k1_32_rel, max_abs_err=k1_32_abs,
+            same_bits_on_rerun=k1_32_same)
+        if not (k1_32_rel < GATE and k1_32_same):
+            raise RuntimeError(f"K1 at S=32 disagrees with its plain version (rel {k1_32_rel}) "
+                               f"or with itself on a second run (same bits: {k1_32_same})")
+        del k1_32_ref
 
         saves3 = (tb16, cond16, w, xs3, a3)
         k4_abs = 0.0
@@ -811,7 +1032,41 @@ def main() -> int:
     if not (rel < GATE and loss_rel < 1e-2):
         raise RuntimeError(f"the fused training loss or its gradients disagree with autograd: "
                            f"{name} rel {rel}, loss rel {loss_rel}")
-    del grads, rounded, plain_task
+
+    # ---- distill_grads: one guided distill loss + backward with fixed draws,
+    # the teacher on K1 and the student on K3 + K4, against the teacher and
+    # the student through the modules on the bf16-rounded weights
+    n_first = DISTILL_STAGES[0]
+    grid, mids = distill_grids(mc.timesteps, n_first)
+    ddraws = dict(i=torch.arange(bt, device=dev) % n_first,  # the last transition included
+                  noise=torch.randn(bt, t_len, mc.pitches, device=dev, generator=gen))
+    dgrads, dloss = {}, {}
+    for key, teacher, cfg in (
+            ("fused", model, TaskConfig(timesteps=mc.timesteps, fused_train=True)),
+            ("modules", rounded, TaskConfig(timesteps=mc.timesteps, use_fused=False))):
+        student = copy.deepcopy(teacher).requires_grad_(True)
+        before = (gated_stack.launches, fwd_saves.launches, bwd.launches)
+        loss_fn = make_distill_loss(DiffusionTask(student, cfg), teacher, grid, mids,
+                                    guided=True, w=W_GUIDANCE)
+        total, _ = loss_fn(batch16, None, True, **ddraws)
+        total.backward()
+        launched = tuple(a - b for a, b in zip(
+            (gated_stack.launches, fwd_saves.launches, bwd.launches), before))
+        if launched != ((2, 1, 1) if key == "fused" else (0, 0, 0)):
+            raise RuntimeError(f"distill_grads {key}: launched (K1, K3, K4) = {launched}")
+        dloss[key] = float(total.detach())
+        dgrads[key] = {n: p.grad.detach().clone() for n, p in student.net.named_parameters()}
+        del student, loss_fn
+    torch.cuda.synchronize()
+    dname, drel, dabs = worst_leaf(dgrads["fused"], dgrads["modules"])
+    dloss_rel = abs(dloss["fused"] - dloss["modules"]) / abs(dloss["modules"])
+    phase("distill_grads", batch=bt, student_steps=n_first, guided=True,
+          leaves=len(dgrads["modules"]), worst_leaf=dname, rel=drel, max_abs_err=dabs,
+          loss_fused=dloss["fused"], loss_modules=dloss["modules"], loss_rel=dloss_rel)
+    if not (drel < GATE and dloss_rel < 1e-2):
+        raise RuntimeError(f"the distill loss or its gradients through K1 + K3 + K4 disagree "
+                           f"with the modules: {dname} rel {drel}, loss rel {dloss_rel}")
+    del grads, rounded, plain_task, dgrads
 
     def step_ms(impl, fused):
         """A whole training step at B=16 on the fixed batch: loss, backward, Adam."""
@@ -840,7 +1095,14 @@ def main() -> int:
             "k4_dcond_ms": time_ms(lambda: bwd(dil, saves3, cot16, True, kweights=kw), 5, 1),
             "k4_plain_ms": time_ms(lambda: bwd_ref(dil, saves3, cot16, False), 3),
             **step_times,
+            "k1_s32_ms": time_ms(lambda: gated_stack(x32, tb32, cond32, w, dil, kweights=kw),
+                                 10, 2),
+            "k1_s32_plain_ms": time_ms(lambda: gated_stack_ref(x32, tb32, cond32, w, dil), 3),
+            "distill_step_ms": distill_step_ms,
         }
+        for n, args in student_args.items():
+            times[f"k2_student{n}_b8_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 5)
+            times[f"k2_student{n}_b8_plain_ms"] = time_ms(lambda: fused_sample_ref(*args), 1, 0)
         for bk, args in k2_args.items():
             times[f"k2_b{bk}_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 3)
             # the plain process at B=8 takes seconds: one unwarmed run
@@ -865,9 +1127,13 @@ def main() -> int:
     w_bytes = nbytes(kw.wcat, kw.wo, kw.b_eff, kw.bo)
     bounds = {"k1": bound(stack_flops(b * t_len, c, taps, mp, L),
                           nbytes(x, tb, cond, k1_out) + w_bytes)}
-    for bk, key in ((2, "k2"), (1, "k2_b1"), (8, "k2_b8")):  # the summary line gives B=2
-        x_Tk, noisek, t_biask, tablesk, condk = (k2_args[bk][i] for i in (0, 1, 2, 3, 6))
-        rows = 2 * bk * t_len  # both guidance streams
+    bounds["k1_s32"] = bound(stack_flops(2 * bt * t_len, c, taps, mp, L),
+                             nbytes(x32, tb32, cond32, k1_32) + w_bytes)
+    processes = [(k2_args[bk], key) for bk, key in ((2, "k2"), (1, "k2_b1"), (8, "k2_b8"))]
+    processes += [(student_args[n], f"k2_student{n}_b8") for n in DISTILL_STAGES]
+    for args, key in processes:  # the summary line gives B=2
+        x_Tk, noisek, t_biask, tablesk, condk = (args[i] for i in (0, 1, 2, 3, 6))
+        rows = (2 if args[8] else 1) * x_Tk.shape[0] * t_len  # the guidance streams
         head_flops = 2.0 * rows * (mc.pitches * c + c * c + c * mc.pitches)
         # the conditioner's lanes are projected once per clip for all layers;
         # each step's gate GEMM contracts over the taps only
@@ -899,15 +1165,21 @@ def main() -> int:
                  times["k2_b2_ms"], times["k2_b2_plain_ms"])
     k2_row.update(ms_b8=times["k2_b8_ms"], plain_ms_b8=times["k2_b8_plain_ms"],
                   bound_ms_b8=bounds["k2_b8"]["bound_ms"])
+    for n in DISTILL_STAGES:  # a distilled student at B=8: one stream, n steps, no noise
+        k2_row.update({f"ms_student{n}_b8": times[f"k2_student{n}_b8_ms"],
+                       f"plain_ms_student{n}_b8": times[f"k2_student{n}_b8_plain_ms"],
+                       f"bound_ms_student{n}_b8": bounds[f"k2_student{n}_b8"]["bound_ms"]})
     # K1's error is its single pass's; its step loops' 200-step trajectories beside it
     k1_row = row("k1", "gated_stack", "diffroll_tpu_torch/csrc/gated_stack.cu",
                  "diffroll_tpu/ops/gated_stack.py:290", launches["gated_stack"], k1_abs,
                  times["k1_ms"], times["k1_plain_ms"])
-    k1_row.update(max_abs_err_step_loop=loop_abs)
+    k1_row.update(max_abs_err_step_loop=loop_abs, ms_s32=times["k1_s32_ms"],
+                  plain_ms_s32=times["k1_s32_plain_ms"], bound_ms_s32=bounds["k1_s32"]["bound_ms"],
+                  max_abs_err_s32=k1_32_abs)
     print(json.dumps({"kernels": [
         k1_row,
         k2_row,
-        row("k3", "fwd_saves", train_src, "diffroll_tpu/ops/gated_stack_train.py:49",
+        row("k3", "fwd_saves", train_src, "diffroll_tpu/ops/gated_stack_train.py:50",
             train_launches["fwd_saves"], k3_abs, times["k3_ms"], times["k3_plain_ms"]),
         row("k4", "bwd", train_src, "diffroll_tpu/ops/gated_stack_train.py:388",
             train_launches["bwd"], k4_abs, times["k4_ms"], times["k4_plain_ms"]),

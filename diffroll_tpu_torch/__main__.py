@@ -15,9 +15,12 @@ Commands:
               (p_grid=[...])
   serve       an HTTP transcription service with micro-batching
               (pretrained_path=<file.ckpt> serve.port=8077 serve.max_batch=8)
+  distill     progressive distillation of a checkpoint's sampler into few-step
+              students (pretrained_path=<file.ckpt> dataset.root=<dir>
+              distill.start_steps=65 distill.stages=5 task.fused_train=true)
 
-Not ported yet: the JAX package's `distill` and `infer` entries (ROADMAP
-Queue 1 items 15 and 21).
+Every command takes `config=<file>.yaml` (its keys layered under the CLI's).
+Not ported yet: the JAX package's `infer` entry (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ import sys
 
 
 def _dispatch(argv) -> int:
-    from .cli import sample, serve, sweep, test, train, transcribe
+    from .cli import distill, sample, serve, sweep, test, train, transcribe
 
     commands = {"transcribe": transcribe.main, "train": train.main, "test": test.main,
-                "sample": sample.main, "sweep": sweep.main, "serve": serve.main}
+                "sample": sample.main, "sweep": sweep.main, "serve": serve.main,
+                "distill": distill.main}
     if not argv or argv[0] in ("-h", "--help") or argv[0] not in commands:
         print(__doc__)
         return 0 if argv and argv[0] in ("-h", "--help") else 2

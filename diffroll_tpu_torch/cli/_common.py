@@ -18,6 +18,7 @@ from ..data.amt import MAESTRO, MAPS
 from ..data.custom import Custom
 from ..data.pipeline import DataLoader
 from ..models.base import DiffRollModel
+from ..tasks.baseline import BaselineTask
 from ..tasks.diffusion import DiffusionTask, TaskConfig
 from ..train.state import TrainState
 
@@ -72,13 +73,13 @@ def build_loader(cfg: ExperimentConfig, dataset, split: str) -> DataLoader:
 
 
 def task_lr(cfg: ExperimentConfig) -> float:
-    return cfg.task.lr
+    return cfg.baseline.lr if cfg.task_type == "baseline" else cfg.task.lr
 
 
 def task_threshold(cfg: ExperimentConfig) -> float:
-    """The eval binarisation threshold. (The JAX package's baseline task
-    has its own; that task is not ported.)"""
-    return cfg.task.frame_threshold
+    """The eval binarisation threshold (the baseline task has its own, 0.6)."""
+    return (cfg.baseline.frame_threshold if cfg.task_type == "baseline"
+            else cfg.task.frame_threshold)
 
 
 def stored_task_config(path: str) -> Optional[TaskConfig]:
@@ -99,20 +100,25 @@ def make_run_dir(cfg: ExperimentConfig, kind: str) -> pathlib.Path:
     return run_dir
 
 
-def setup_model_task(cfg: ExperimentConfig, device) -> Tuple[DiffRollModel, DiffusionTask]:
+def setup_model_task(cfg: ExperimentConfig, device) -> Tuple[DiffRollModel, Any]:
+    """The model on `device` and its task: a `DiffusionTask`, or a
+    `BaselineTask` for task_type=baseline."""
     model = DiffRollModel(cfg.model).to(device)
+    if cfg.task_type == "baseline":
+        return model, BaselineTask(model, cfg.baseline)
     return model, DiffusionTask(model, cfg.task)
 
 
 def config_record(cfg: ExperimentConfig) -> Dict[str, Any]:
-    return {"model_name": cfg.model_name, "model": cfg.model, "task": cfg.task}
+    return {"model_name": cfg.model_name, "model": cfg.model, "task": cfg.task,
+            "task_type": cfg.task_type, "baseline": cfg.baseline}
 
 
 def load_pretrained(
     cfg: ExperimentConfig,
     prefer_ema: bool = True,
     overrides: Optional[Dict[str, Any]] = None,
-) -> Tuple[ExperimentConfig, DiffRollModel, DiffusionTask, TrainState]:
+) -> Tuple[ExperimentConfig, DiffRollModel, Any, TrainState]:
     """Restore a checkpoint with the reference's "reload weights, override
     hparams" semantic. The stored model config wins for architecture and the
     user's explicit `model.*` keys are re-applied on top of it (e.g.
@@ -122,6 +128,7 @@ def load_pretrained(
     task knobs, and the optimizer state and step come back too. For a
     published Lightning checkpoint, the task knobs it records apply first
     and the user's explicit `task.*` keys win; the optimizer starts fresh.
+    A checkpoint the port wrote also brings back its `task_type`.
     In both, `timesteps` follows the model's embedding table. EMA weights
     are preferred when `prefer_ema` (evaluation); fine-tuning continues from
     the raw weights.
@@ -146,7 +153,8 @@ def load_pretrained(
         task_cfg = task_cfg.replace(**updates)
     cfg = cfg.replace(
         model=model_cfg, task=task_cfg.replace(timesteps=model_cfg.timesteps),
-        model_name=port["model_name"] if port else cfg.model_name)
+        model_name=port["model_name"] if port else cfg.model_name,
+        task_type=port.get("task_type", cfg.task_type) if port else cfg.task_type)
 
     model, task = setup_model_task(cfg, device)
     weights = ckpt.get("ema") if prefer_ema and ckpt.get("ema") is not None \

@@ -113,7 +113,9 @@ def main(argv: Optional[List[str]] = None):
     for w in w_grid:
         # one sampling pass per w; every threshold is scored from its rolls
         c = cfg.replace(task=cfg.task.replace(w=w))
-        by_thr = run_test(c, model, type(task)(model, c.task), thresholds=thr_grid)
+        # the baseline's one-shot walk has no guidance: its task stays as it is
+        t = task if c.task_type == "baseline" else type(task)(model, c.task)
+        by_thr = run_test(c, model, t, thresholds=thr_grid)
         for thr in thr_grid:
             rows.append({"w": w, "frame_threshold": thr, **by_thr[thr]})
             print(json.dumps(rows[-1]), file=sys.stderr)

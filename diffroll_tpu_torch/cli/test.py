@@ -153,7 +153,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     # checkpoint the port trained recorded another one (w may differ:
     # only the sampler's identity and grid are compared)
     stored_task = _common.stored_task_config(cfg.pretrained_path)
-    if stored_task is not None:
+    if stored_task is not None and cfg.task_type != "baseline":
         eff = (cfg.task.sampling_type, cfg.task.sampling_steps)
         rec = (stored_task.sampling_type, stored_task.sampling_steps)
         pinned = {"task.sampling_type", "task.sampling_steps"} & set(overrides)

@@ -1,8 +1,10 @@
-"""Training entry: the supervised, unsupervised-pretrain and fine-tuning
-recipes (counterpart of `diffroll_tpu/cli/train.py`).
+"""Training entry: the supervised, unsupervised-pretrain, baseline and
+fine-tuning recipes (counterpart of `diffroll_tpu/cli/train.py`).
 
     python -m diffroll_tpu_torch train spec_roll dataset.root=/data model.kernel_size=9
     python -m diffroll_tpu_torch train unsupervised_pretrained dataset.root=/data
+    python -m diffroll_tpu_torch train baseline dataset.root=/data   # the one-shot
+                                        # regression, through the nn.Modules
     python -m diffroll_tpu_torch train spec_roll pretrained_path=out/last.ckpt \
         model.spec_dropout=0.5                      # continue on one dataset
     python -m diffroll_tpu_torch train spec_roll pretrained_path=out/last.ckpt \

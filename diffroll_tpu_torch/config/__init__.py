@@ -1,11 +1,13 @@
 from .experiment import (
-    DataloaderConfig, DatasetConfig, ExperimentConfig, ServeConfig, TrainerConfig, asdict_flat)
+    DataloaderConfig, DatasetConfig, DistillConfig, ExperimentConfig, ServeConfig, TrainerConfig,
+    asdict_flat)
 from .overrides import apply_overrides, coerce, parse_argv
 from .presets import PRESETS, compose, from_argv
 
 __all__ = [
     "DataloaderConfig",
     "DatasetConfig",
+    "DistillConfig",
     "ExperimentConfig",
     "PRESETS",
     "ServeConfig",

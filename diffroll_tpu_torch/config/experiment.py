@@ -2,21 +2,23 @@
 `diffroll_tpu/config/experiment.py`): top-level knobs plus the model / task /
 dataset / dataloader / trainer groups, with the JAX package's defaults.
 
-Left out until their slices are ported: `task_type` / `baseline` (the
-baseline task), `distill`, and the trainer's `model_axis`, `data_axis`,
-`rng_impl`, `adam_moments_dtype`. Left out for good: `dataloader.transfer`
-(training batches always cross as float32 through pinned memory with a
-non-blocking copy, `data/pipeline.to_device`) and `serve.compile_cache_dir`
-(the XLA compilation cache; eager PyTorch compiles nothing per shape).
+Left out until their slices are ported: the trainer's `model_axis`,
+`data_axis`, `rng_impl` and `adam_moments_dtype`. Left out for good:
+`dataloader.transfer` (training batches always cross as float32 through
+pinned memory with a non-blocking copy, `data/pipeline.to_device`) and
+`serve.compile_cache_dir` (the XLA compilation cache; eager PyTorch compiles
+nothing per shape).
 `device` is the port's own knob.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import warnings
+from typing import Any, Dict, List, Optional
 
 from ..models.base import DiffRollConfig
+from ..tasks.baseline import BaselineConfig
 from ..tasks.diffusion import TaskConfig
 
 
@@ -108,12 +110,60 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    """Progressive-distillation knobs (`python -m diffroll_tpu_torch distill`;
+    semantics in train/distill.py). Same fields and defaults as the JAX
+    package's."""
+
+    start_steps: int = 65        # the first student's steps (its teacher walks
+                                 # the 2n - 1 = 129-point strided grid)
+    stages: int = 5              # halvings: 65 -> 33 -> 17 -> 9 -> 5
+    steps_per_stage: int = 2000  # optimizer steps per stage
+    lr: float = 1e-4
+    w: float = 0.5               # guidance folded into the first stage
+    fold_guidance: bool = True
+    snr_clip: float = 1.0        # SNR loss-weight floor
+    snr_cap: float = 5.0         # SNR loss-weight ceiling (min-SNR-gamma)
+
+    def replace(self, **kw) -> "DistillConfig":
+        return dataclasses.replace(self, **kw)
+
+    def __post_init__(self):
+        # a later-stage teacher is queried only at timesteps it was trained
+        # on when each grid is every other point of the one before:
+        # n_i == 2 n_{i+1} - 1, i.e. start_steps = 2^k + 1
+        steps = self.stage_steps()
+        broken = [(a, b) for a, b in zip(steps, steps[1:]) if a != 2 * b - 1]
+        if broken:
+            warnings.warn(
+                f"distill stage grids do not nest: start_steps={self.start_steps} gives "
+                f"stages {steps}, but {broken[0][1]}-step grid is not every other "
+                f"point of the {broken[0][0]}-step grid. Later-stage teachers will be "
+                f"queried at timesteps they were never trained on; use "
+                f"start_steps = 2^k + 1 (e.g. 65, 33, 17).", stacklevel=2)
+
+    def stage_steps(self) -> List[int]:
+        """Step counts per stage, halving from start_steps: n -> (n + 1) // 2,
+        while at least 2."""
+        out, n = [], self.start_steps
+        for _ in range(self.stages):
+            out.append(n)
+            n = (n + 1) // 2
+            if n < 2:
+                break
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """Root config: everything a CLI entry needs."""
 
     model_name: str = "ClassifierFreeDiffRoll"
     model: DiffRollConfig = DiffRollConfig()
+    # 'diffusion' -> DiffusionTask(task); 'baseline' -> BaselineTask(baseline)
+    task_type: str = "diffusion"
     task: TaskConfig = TaskConfig()
+    baseline: BaselineConfig = BaselineConfig()
     dataset: DatasetConfig = DatasetConfig()
     # second dataset for the dual-loss recipe
     dataset2: Optional[DatasetConfig] = None
@@ -129,6 +179,7 @@ class ExperimentConfig:
     # lame binary where one exists and writes 16-bit wav otherwise
     audio_format: str = "mp3"
     serve: ServeConfig = ServeConfig()
+    distill: DistillConfig = DistillConfig()
     # where the entry point runs: "cuda" unless the caller asks for "cpu"
     device: str = "cuda"
 

@@ -1,15 +1,16 @@
 """Root experiment presets + composition (counterpart of
-`diffroll_tpu/config/presets.py`): one preset per reference root yaml, as
-far as it names a ported model and task. `compose(name, overrides)` resolves
-a preset and applies dotted overrides; `from_argv` wires it to a CLI.
+`diffroll_tpu/config/presets.py`): one preset per reference root yaml.
+`compose(name, overrides)` resolves a preset and applies dotted overrides,
+with `config=<file>.yaml` layered under them; `from_argv` wires it to a CLI.
 
-Not ported: the `baseline` preset (the baseline task) and `config=<file>.yaml`
-layering. The `pianoroll` / `infer` presets compose as data; building their
-U-Net raises NotImplementedError naming the ROADMAP item.
+The `pianoroll` / `infer` presets compose as data; building their U-Net
+raises NotImplementedError naming the ROADMAP item. PyYAML is imported only
+where `config=` is given: the port runs without it otherwise.
 """
 
 from __future__ import annotations
 
+import pathlib
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..models import PRESETS as MODEL_PRESETS
@@ -60,14 +61,44 @@ _PIANOROLL = _base("Unet").replace(
     trainer=TrainerConfig(max_epochs=200, monitor="val/diffusion_loss"),
 )
 
+# the discriminative one-shot spec -> roll regression (kernel 7, no dilation)
+_BASELINE = _SPEC_ROLL.replace(
+    model_name="DiffRollBaseline",
+    model=MODEL_PRESETS["DiffRollBaseline"],
+    task_type="baseline",
+    trainer=_SPEC_ROLL.trainer.replace(monitor="val/amt_loss"),
+)
+
 PRESETS: Dict[str, ExperimentConfig] = {
     "spec_roll": _SPEC_ROLL,
+    "baseline": _BASELINE,
     "unsupervised_pretrained": _UNSUP,
     "test": _TEST,
     "sampling": _SAMPLING,
     "pianoroll": _PIANOROLL,
     "infer": _PIANOROLL,
 }
+
+
+def load_yaml_overrides(path: str | pathlib.Path) -> Dict[str, Any]:
+    """A YAML mapping flattened into dotted override keys."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise SystemExit(f"config={path} needs PyYAML, which is not installed; pass the "
+                         f"keys as key=value instead") from e
+    raw = yaml.safe_load(pathlib.Path(path).read_text()) or {}
+
+    def flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update(flatten(v, f"{prefix}{k}."))
+            else:
+                out[f"{prefix}{k}"] = v
+        return out
+
+    return flatten(raw)
 
 
 def compose(name: str = "spec_roll",
@@ -83,6 +114,11 @@ def compose(name: str = "spec_roll",
     if model_name is not None:
         cfg = cfg.replace(model_name=model_name, model=MODEL_PRESETS[model_name])
 
+    # `config=<file>.yaml` layers a YAML file under the other overrides
+    yaml_path = overrides.pop("config", None)
+    if yaml_path is not None:
+        overrides = {**load_yaml_overrides(yaml_path), **overrides}
+
     cfg = apply_overrides(cfg, overrides)
     # keep the model's embedding table in step with the task's T
     if cfg.model.timesteps != cfg.task.timesteps:
@@ -97,9 +133,13 @@ def from_argv(argv: List[str], default: str,
     The first positional token, if it names a preset, selects it. Returns
     (config, remaining positionals, raw overrides): the raw overrides let
     the checkpoint loaders re-apply the user's explicit keys on top of a
-    stored config.
+    stored config. They hold every key the user pinned, those layered from
+    `config=<file>.yaml` included (the CLI's win over the file's), so a
+    loader does not overwrite a file's value with a stored one.
     """
     positional, overrides = parse_argv(argv)
     named = bool(positional) and positional[0] in PRESETS
     cfg = compose(positional[0] if named else default, dict(overrides))
+    if "config" in overrides:
+        overrides = {**load_yaml_overrides(overrides["config"]), **overrides}
     return cfg, positional[1:] if named else positional, overrides

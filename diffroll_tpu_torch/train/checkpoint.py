@@ -35,8 +35,9 @@ def _jsonable(obj: Any) -> Any:
 
 
 def hyper_parameters(config: Dict[str, Any]) -> Dict[str, Any]:
-    """The config record ({'model_name', 'model', 'task'}) as Lightning
-    hyper_parameters: the reference's keys, then the full configs."""
+    """The config record ({'model_name', 'model', 'task'}, and 'task_type' /
+    'baseline' where given) as Lightning hyper_parameters: the reference's
+    keys, then the full configs."""
     m, t = config["model"], config["task"]
     return {
         "residual_channels": m.residual_channels, "residual_layers": m.residual_layers,
@@ -49,7 +50,9 @@ def hyper_parameters(config: Dict[str, Any]) -> Dict[str, Any]:
         "training": {"mode": t.training_mode},
         "sampling": {"type": t.sampling_type, "w": t.w},
         "port_config": {"model_name": config.get("model_name", m.name),
-                        "model": _jsonable(m), "task": _jsonable(t)},
+                        "model": _jsonable(m), "task": _jsonable(t),
+                        **{k: _jsonable(config[k]) for k in ("task_type", "baseline")
+                           if k in config}},
     }
 
 

@@ -23,6 +23,7 @@ from diffroll_tpu.ops.sampler_kernel import sampler_tables as j_tables
 from diffroll_tpu.tasks.diffusion import TaskConfig as JTaskConfig
 from diffroll_tpu_torch import config as tconfig
 from diffroll_tpu_torch import models as tmodels
+from diffroll_tpu_torch import tasks as ttasks
 from diffroll_tpu_torch.config import overrides as toverrides
 from diffroll_tpu_torch.diffusion import loop as tloop
 from diffroll_tpu_torch.diffusion import schedule as tschedule
@@ -162,17 +163,19 @@ def test_port_imports_no_jax():
 TRAINER_LEFT_OUT = ("model_axis", "data_axis", "rng_impl", "adam_moments_dtype")
 # The packed host-to-device batch formats are not ported: batches cross as float32.
 DATALOADER_LEFT_OUT = ("transfer",)
-# Root fields of slices that are not ported yet; `device` is the port's own.
-ROOT_LEFT_OUT = ("task_type", "baseline", "distill")
+# Every root field is ported; `device` is the port's own.
+ROOT_LEFT_OUT = ()
 # The XLA compilation cache has no counterpart in the port.
 SERVE_LEFT_OUT = ("compile_cache_dir",)
 
 
 @pytest.mark.parametrize("group,left_out", [
     ("DatasetConfig", ()), ("DataloaderConfig", DATALOADER_LEFT_OUT),
-    ("TrainerConfig", TRAINER_LEFT_OUT), ("ServeConfig", SERVE_LEFT_OUT)])
+    ("TrainerConfig", TRAINER_LEFT_OUT), ("ServeConfig", SERVE_LEFT_OUT),
+    ("DistillConfig", ()), ("BaselineConfig", ())])
 def test_config_groups_match(group, left_out):
-    _assert_same_fields(getattr(jexperiment, group)(), getattr(tconfig, group)(), left_out)
+    port = getattr(tconfig, group, None) or getattr(ttasks, group)
+    _assert_same_fields(getattr(jexperiment, group)(), port(), left_out)
     if group == "DatasetConfig":
         assert tconfig.DatasetConfig().audio_ext == "wav"
 
@@ -192,6 +195,9 @@ def _assert_same_experiment(j, t):
     tf = [f.name for f in dataclasses.fields(t) if f.name != "device"]
     assert jf == tf
     assert j.model_name == t.model_name and j.pretrained_path == t.pretrained_path
+    assert j.task_type == t.task_type
+    _assert_same_fields(j.baseline, t.baseline)
+    _assert_same_fields(j.distill, t.distill)
     assert j.dual == t.dual and t.device == "cuda"
     assert j.num_samples == t.num_samples and j.audio_format == t.audio_format
     _assert_same_fields(j.serve, t.serve, SERVE_LEFT_OUT)
@@ -212,8 +218,8 @@ def test_experiment_defaults_match():
 
 @pytest.mark.parametrize("name", sorted(tconfig.PRESETS))
 def test_experiment_presets_match(name):
-    # every preset of the JAX package but the baseline task's is there
-    assert sorted(tconfig.PRESETS) == sorted(set(jconfig.PRESETS) - {"baseline"})
+    # every preset of the JAX package is there
+    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
     _assert_same_experiment(jconfig.PRESETS[name], tconfig.PRESETS[name])
     # the transcription preset reads mp3 folders; the dataset default is wav
     assert tconfig.PRESETS["sampling"].dataset.audio_ext == "mp3"
@@ -225,6 +231,8 @@ def test_experiment_presets_match(name):
     ["dual", "dataset2.name=MAESTRO", "dataset2.sequence_length=4096", "dual=true"],
     ["task.fused_train=true", "dataloader.train_batch_size=4", "pretrained_path=a.ckpt"],
     ["sampling", "dataset.audio_ext=wav", "task.w=0.3", "model_name=DiffRoll"],
+    ["baseline", "baseline.lr=1e-4", "baseline.time_mode=random", "model.residual_layers=4"],
+    ["distill.start_steps=9", "distill.stages=2", "distill.w=0.3", "task_type=baseline"],
 ])
 def test_from_argv_matches(argv):
     jc, jrest, jover = jconfig.from_argv(argv, "spec_roll")
@@ -239,7 +247,7 @@ def test_from_argv_matches(argv):
 
 def test_compose_rejects_unknown_names():
     with pytest.raises(KeyError, match="unknown config"):
-        tconfig.compose("baseline")
+        tconfig.compose("no_such_preset")
     with pytest.raises(KeyError):
         tconfig.compose("spec_roll", {"trainer.model_axis": "2"})
 
@@ -248,3 +256,60 @@ def test_schedule_tables_are_float32():
     s = tschedule.linear_schedule(1e-4, 0.02, 200)
     assert all(getattr(s, f).dtype == torch.float32 for f in s._fields)
     assert s.timesteps == 200
+
+
+# ---------------------------------------------------------- config=<file>.yaml
+
+YAML = """\
+task:
+  w: 0.25
+  sampling_steps: 20
+  inpainting_t: [4, 12]
+model:
+  residual_layers: 6
+trainer:
+  max_epochs: 7
+  run_name: from_file
+distill:
+  stages: 3
+dataset:
+  root: /from/file
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["task.w=0.75", "trainer.max_epochs=2"],
+    ["spec_roll", "model.residual_layers=3", "distill.stages=1"],
+    ["baseline", "dataset.root=/cli"],
+])
+def test_yaml_layering_matches_jax(tmp_path, argv):
+    """`config=<file>.yaml` layers under the CLI keys, as in the JAX package:
+    the same config and the same pinned overrides (the file's keys included,
+    the CLI's winning)."""
+    path = tmp_path / "exp.yaml"
+    path.write_text(YAML)
+    full = [*argv, f"config={path}"]
+    jc, jrest, jover = jconfig.from_argv(full, "spec_roll")
+    tc, trest, tover = tconfig.from_argv(full, "spec_roll")
+    assert jrest == trest and jover == tover
+    _assert_same_experiment(jc, tc)
+    assert tover["config"] == str(path) and tover["trainer.run_name"] == "from_file"
+    cli = dict(a.split("=", 1) for a in argv if "=" in a)
+    assert tc.task.w == float(cli.get("task.w", 0.25))
+    assert tc.trainer.max_epochs == int(cli.get("trainer.max_epochs", 7))
+    assert tc.distill.stages == int(cli.get("distill.stages", 3))
+    assert list(tc.task.inpainting_t) == [4, 12] and tc.task.sampling_steps == 20
+    # compose alone takes the file too, under its other keys
+    assert tconfig.compose("spec_roll", {"config": str(path), "task.w": "0.5"}).task.w == 0.5
+
+
+def test_yaml_layering_without_pyyaml(tmp_path, monkeypatch):
+    """PyYAML is imported only for `config=`: without it the port imports and
+    composes, and `config=` stops with one clear error."""
+    path = tmp_path / "exp.yaml"
+    path.write_text(YAML)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert tconfig.from_argv(["task.w=0.5"], "spec_roll")[0].task.w == 0.5
+    with pytest.raises(SystemExit, match="needs PyYAML"):
+        tconfig.from_argv([f"config={path}"], "spec_roll")

@@ -398,3 +398,108 @@ def test_transcribe_long_on_the_card_at_batch8(cuda_f32):
     assert rolls[0].shape == (8 * 640 - 7 * 32, 88)
     ref = torch.from_numpy(rolls[1])
     assert _rel(torch.from_numpy(rolls[0]), ref) < BF16_GATE
+
+
+# ---- the other 1-d presets that `supports_fused` admits, at their own widths:
+# DiffRoll (512 x 15, every dilation 1, T = 500: K2's tables and t_bias have
+# 500 rows) and DiffRollDebug (256 x 30, every dilation 1, T = 500, the 88-lane
+# roll conditioner padded to 256)
+PRESETS_1D = ["DiffRoll", "DiffRollDebug"]
+
+
+def _preset_case(dev, name, b=2):
+    torch.manual_seed(0)
+    tm = tmodels.build(name).to(dev)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    mc = tm.config
+    assert set(mc.dilations()) == {1} and mc.timesteps == 500
+    w = tgs.stack_weights(tm.net)
+    kw = tgs.kernel_weights(w)
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    c = mc.residual_channels
+    x = torch.randn(b, mc.frames, c, device=dev)
+    tb = 0.1 * torch.randn(mc.residual_layers, b, c, device=dev)
+    # a spectrogram in [0, 1], or for the debug model a piano roll
+    cond = (torch.rand(b, mc.frames, mc.n_mels, device=dev) if mc.cond_source == "spec"
+            else (torch.rand(b, mc.frames, mc.n_mels, device=dev) > 0.9).float())
+    cot = torch.randn(b, mc.frames, c, device=dev)
+    return tm, w, wq, kw, x, tb, cond, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS_1D)
+def test_presets_stack_kernel(cuda_f32, name):
+    """K1 at the preset's widths against its plain version, and the same bits
+    on a second run."""
+    tm, w, wq, kw, x, tb, cond, _ = _preset_case(cuda_f32, name)
+    dil = tm.config.dilations()
+    assert kw.mp == 256  # 229 or 88 lanes, zero-padded
+    with torch.no_grad():
+        out = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+        again = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+        ref = tgs.gated_stack_ref(x, tb, cond, wq, dil)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < BF16_GATE and torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["cfdg_ddpm_x0", "ddim_x0"], ids=["guided", "unguided"])
+@pytest.mark.parametrize("name", PRESETS_1D)
+def test_presets_fused_sample(cuda_f32, name, sampler):
+    """K2 over all 500 steps (guided with noise; unguided without, as a
+    distilled student samples) against the plain process on the kernels'
+    weight values, the same bits on a second run."""
+    dev = cuda_f32
+    tm, w, wq, kw, _, _, cond, _ = _preset_case(dev, name, b=1)
+    task = DiffusionTask(tm, TaskConfig(timesteps=500, sampling_type=sampler, w=0.5))
+    with torch.no_grad():
+        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        assert tables.shape == (500, 3) and t_bias.shape[0] == 500
+        assert stochastic == (sampler == "cfdg_ddpm_x0")
+        x_T = torch.randn(1, tm.config.frames, 88, device=dev)
+        noise = torch.randn(500, 1, tm.config.frames, 88, device=dev) if stochastic else None
+        args = (x_T, noise, t_bias, tables, w, head, cond, tm.config.dilations(),
+                sampler == "cfdg_ddpm_x0", 0.5, stochastic)
+        before = fused_sample.launches
+        out = fused_sample(*args, kweights=kw)
+        again = fused_sample(*args, kweights=kw)
+        ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
+    torch.cuda.synchronize()
+    assert fused_sample.launches == before + 2
+    assert torch.isfinite(out).all() and _rel(out, ref) < BF16_GATE
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PRESETS_1D)
+def test_presets_training_kernels(cuda_f32, name):
+    """K3 (skip, xs, a; skip bit for bit K1's) and K4 (every leaf, with and
+    without dcond) at the preset's widths, each against its plain version and
+    the same bits on a second run."""
+    tm, w, wq, kw, x, tb, cond, cot = _preset_case(cuda_f32, name)
+    dil = tm.config.dilations()
+    with torch.no_grad():
+        skip, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        skip_r, xs_r, a_r = tgt.fwd_saves_ref(x, tb, cond, wq, dil)
+        k1 = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, k1)
+    for out, ref in ((skip, skip_r), (xs.float(), xs_r), (a.float(), a_r)):
+        assert _rel(out, ref) < BF16_GATE
+
+    def leaves(o):
+        dx, dtb, dcond, dw = o
+        named = {"dx": dx, "dtb": dtb, "dcond": dcond}
+        named.update({f"d{k}": v for k, v in dw._asdict().items()})
+        return {k: v for k, v in named.items() if v is not None}
+
+    for need_dcond in (True, False):
+        with torch.no_grad():
+            got = leaves(tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            rerun = leaves(tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            want = leaves(tgt.bwd_ref(dil, (tb, cond, wq, xs, a), cot, need_dcond))
+        torch.cuda.synchronize()
+        assert got.keys() == want.keys() and ("dcond" in got) == need_dcond
+        for leaf in want:
+            assert _rel(got[leaf], want[leaf]) < BF16_GATE, (need_dcond, leaf)
+            assert torch.equal(got[leaf], rerun[leaf]), (need_dcond, leaf)
