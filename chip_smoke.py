@@ -61,51 +61,79 @@ exits non-zero):
                 through the nn.Modules, then its test split (the 200-step walk
                 at B=8); no kernel launched. Then one of its training steps at
                 B=16 and the walk at B=8 by CUDA events
- 11. k1         the gated-stack kernel vs its plain version at the flagship
+ 11. trainable  `cli.train.main spec_roll model.condition=trainable_spec` (and then
+                `trainable_z`) at full width (512 x 15, B=16, task.fused_train=true,
+                which still launches no kernel: `supports_fused` admits only the
+                fixed conditioning) on the train recordings alone (no post-fit
+                test): 3 steps, validation with the val_hook's figures (or its one
+                stderr line without matplotlib: the heatmap of the learned
+                substitute), the checkpoint; then `cli.transcribe.main` on one
+                20.48 s window (200-step cfdg_ddpm_x0, w=0.5) through the modules
+ 12. v2         the same for DiffRollv2 (16 x 30, task.timesteps=500, the
+                preset's): 3 steps, then one window of 500 guided steps
+ 13. unet       `cli.train.main pianoroll dataset.name=MAPS` (dim 28, epsilon
+                objective, huber): 3 steps; then `cli.infer.main num_samples=2`
+                (200 ddpm steps): npz with the trajectory, MIDI and manifest.json
+ 14. spec_unet  `cli.train.main spec_roll model_name=SpecUnet`: 3 steps and the
+                post-fit test over one 10 s test recording (one window), which
+                must write test_metrics.json
+     Each of 11-14 prints one line: the wall times (the sampling entry's
+     over the whole process), a training step at B=16 by CUDA events (median
+     of 3 after a warm-up, on a fixed batch), the ms a reverse step takes by
+     events (its sampling entry's process, strided to 50 steps), the run's
+     peak memory (max_memory_allocated) and the K1-K4 launch counts, all zero
+ 15. variants_hold the six new configurations (trainable_spec, trainable_z,
+                DiffRollv2, DiffRollv2Debug, Unet, SpecUnet) at their published
+                widths: the same module on the CPU and on the card on the same
+                seeded weights, two windows (the second row unconditional):
+                forward max|d| / max|ref| < 1e-3, every parameter gradient of a
+                training loss < 2e-3, the loss within 1e-4 relative; the worst
+                leaf is printed
+ 16. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 12. k2         the whole-process sampler vs its plain version at B=1 and at
+ 17. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 13. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 18. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 14. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 19. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 15. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 16. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 20. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 21. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
- 17. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+ 22. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
                 stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
                 0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 12: the error against the unrounded f32 weights,
+     beside them in phase 17: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 18. k3         the training forward-with-saves kernel vs its plain version at
+ 23. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 19. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+ 24. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
                 512), the conditional rows then spec := -1: rel < 0.05 and the
                 same bits on a second run
- 20. k4         the training backward kernel vs its plain version from the same
+ 25. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 21. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 26. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 22. distill_grads one guided distill loss + backward at B=16 with fixed
+ 27. distill_grads one guided distill loss + backward at B=16 with fixed
                 transitions and noise: the teacher through K1 and the student
                 through K3 + K4, against both through the nn.Modules on the
                 bf16-rounded weights: every student gradient rel < 0.05, the
                 losses within 1e-2 relative
- 23. times      warm median times of the four kernels and their plain versions
+ 28. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
                 under `*_b8`), of a whole training step at B=16 by three
@@ -130,9 +158,9 @@ its count on its first path, transcribe for K1 and K2, train for K3 and K4;
 `launches_by_path` gives the count of each user-facing path that the script
 drives with the counters reset just before and read just after (transcribe,
 train, test, sample, serve, distill, distill_test: the students' test runs,
-baseline). K1's `max_abs_err` is its single pass's;
-`max_abs_err_step_loop` is the largest of its step loops' 200-step
-trajectories against the plain ones.
+baseline, and trainable, v2, unet and spec_unet, each 0 of every kernel).
+K1's `max_abs_err` is its single pass's; `max_abs_err_step_loop` is the
+largest of its step loops' 200-step trajectories against the plain ones.
 """
 
 from __future__ import annotations
@@ -166,6 +194,7 @@ SERVE_BATCH = 8       # serve.max_batch's default, and dataloader.test_batch_siz
 STEPS = 200
 DISTILL_STAGES = (9, 5)   # distill.start_steps=9 distill.stages=2: CFG folded into the first
 DISTILL_STEPS = 3         # optimizer steps per stage
+TIMED_STEPS = 50          # the new families' reverse process by events: a strided part
 
 
 def phase(name: str, **fields) -> None:
@@ -292,6 +321,19 @@ def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
     return buf.getvalue()
+
+
+def kernel_launches(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def fixed_batch(mc, dev, gen, b: int = TRAIN_BATCH) -> dict:
+    """A seeded batch of `b` windows on the card: sparse rolls, noise audio."""
+    return {"frame": (torch.rand(b, mc.frames, mc.pitches, device=dev, generator=gen)
+                      > 0.95).float(),
+            "audio": 0.1 * torch.randn(b, mc.frames * mc.mel.hop_length, device=dev,
+                                       generator=gen)}
+
 
 
 def reset_launches(*fns) -> None:
@@ -559,10 +601,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     teacher.requires_grad_(False)
     mc = teacher.config
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    batch = {"frame": (torch.rand(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
-                                  generator=gen) > 0.95).float(),
-             "audio": 0.1 * torch.randn(TRAIN_BATCH, mc.frames * mc.mel.hop_length, device=dev,
-                                        generator=gen)}
+    batch = fixed_batch(mc, dev, gen)
     step_ms = {}
     for n, guided in zip(DISTILL_STAGES, (True, False)):
         student = copy.deepcopy(teacher).requires_grad_(True)
@@ -598,7 +637,7 @@ def run_baseline_phase(data: pathlib.Path, out: pathlib.Path, kernels) -> dict:
         f"trainer.output_dir={out}"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = kernel_launches(kernels)
     (run_dir,) = out.glob("*/*/train-*")
     records = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [r["train/amt_loss"] for r in records if "train/amt_loss" in r]
@@ -618,10 +657,7 @@ def run_baseline_phase(data: pathlib.Path, out: pathlib.Path, kernels) -> dict:
     mc = model.config
     task = BaselineTask(model, BaselineConfig())
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    batch = {"frame": (torch.rand(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
-                                  generator=gen) > 0.95).float(),
-             "audio": 0.1 * torch.randn(TRAIN_BATCH, mc.frames * mc.mel.hop_length, device=dev,
-                                        generator=gen)}
+    batch = fixed_batch(mc, dev, gen)
     step = make_train_step(task.loss_fn)
     step_ms = time_ms(lambda: step(state, batch, gen), 5, 2)
     x_T = torch.randn(SERVE_BATCH, mc.frames, mc.pitches, device=dev, generator=gen)
@@ -632,6 +668,246 @@ def run_baseline_phase(data: pathlib.Path, out: pathlib.Path, kernels) -> dict:
           test_metrics={k: metrics[k] for k in ("n_clips", "note_f1", "frame_f1")},
           step_ms_by_events=step_ms, walk_b8_ms_by_events=walk_ms, launches=launches)
     return launches
+
+
+
+def run_family(argv, data: pathlib.Path, out: pathlib.Path, kernels, then: str,
+               audio_dir: pathlib.Path) -> dict:
+    """One model family the kernels do not cover, through the entries a user
+    calls. `cli.train.main argv` for TRAIN_STEPS steps at B=16 on the corpus
+    under `data`, with validation (the val_hook's figures, or its one stderr
+    line without matplotlib), the checkpoints, and the post-fit test where
+    the corpus has a test split. Then, on the checkpoint, `then`:
+    'transcribe' (one 20.48 s window under `audio_dir`, the model's full
+    step count, cfdg_ddpm_x0 at w=0.5), 'infer' (num_samples=2) or 'test'
+    (the post-fit test's metrics). Then one training step by CUDA events
+    (the median of 3 after a warm-up) on a fixed batch, and the ms a step of
+    the reverse process by events, as the sampling entry runs it but over
+    TIMED_STEPS strided steps. No kernel may launch anywhere in the run; the
+    peak memory is the whole run's."""
+    import contextlib
+
+    from diffroll_tpu_torch.cli import _common
+    from diffroll_tpu_torch.cli import infer as cli_infer
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.cli import transcribe as cli_transcribe
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.tasks import DiffusionTask
+    from diffroll_tpu_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    reset_launches(*kernels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        state = cli_train.main([
+            *argv, f"dataset.root={data}", "device=cuda", "trainer.max_epochs=1",
+            "trainer.check_val_every_n_epoch=1", "trainer.log_every_n_steps=1",
+            f"dataloader.train_batch_size={TRAIN_BATCH}", "audio_format=wav",
+            f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), file=sys.stderr, end="")
+    (run_dir,) = out.glob("*/*/train-*")
+    records = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/diffusion_loss"] for r in records if "train/diffusion_loss" in r]
+    val = [r["val/diffusion_loss"] for r in records if "val/diffusion_loss" in r]
+    if state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not val or not all(
+            math.isfinite(v) for v in losses + val):
+        raise RuntimeError(f"{argv}: {state.step} steps, losses {losses}, val {val}")
+    mc = state.model.config
+    figures = sorted(f.name for f in (run_dir / "figures").glob("*.png")) \
+        if (run_dir / "figures").is_dir() else []
+    no_mpl = "matplotlib is not installed" in log.getvalue()
+    want = ["val_rolls"] + (["val_trainable_params"] if mc.condition != "fixed" else [])
+    if not no_mpl and sorted(f.rsplit("_", 1)[0] for f in figures) != want:
+        raise RuntimeError(f"{argv}: the val_hook wrote {figures} and printed no notice")
+    ckpt = run_dir / "checkpoints" / "last.ckpt"
+    reading = {"model": mc.name, "variant": mc.variant, "condition": mc.condition,
+               "params": sum(p.numel() for p in state.model.net.parameters()),
+               "train_seconds": train_s, "train_losses": losses, "val_losses": val,
+               "figures": figures, "val_hook_notice": no_mpl}
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    task_cfg = _common.stored_task_config(str(ckpt))
+    if then == "test":
+        metrics = json.loads((run_dir / "test_metrics.json").read_text())
+        if metrics["n_clips"] != 1 or not all(math.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"{argv}: post-fit test {metrics}")
+        reading["test_metrics"] = {k: metrics[k] for k in ("n_clips", "note_f1", "frame_f1")}
+    elif then == "transcribe":
+        t0 = time.perf_counter()
+        tr_dir = cli_transcribe.main([
+            f"pretrained_path={ckpt}", f"dataset.audio_path={audio_dir}",
+            "dataset.audio_ext=wav", "task.sampling_type=cfdg_ddpm_x0", f"task.w={W_GUIDANCE}",
+            "overlap_frames=32", "device=cuda", f"trainer.output_dir={out}"])
+        torch.cuda.synchronize()
+        roll = np.load(tr_dir / "000_window.npz")["roll"]
+        if roll.shape != (mc.frames, mc.pitches) or not np.isfinite(roll).all() or not (
+                tr_dir / "000_window.mid").exists():
+            raise RuntimeError(f"{argv}: transcribe gave a roll of {roll.shape}")
+        reading.update(transcribe_seconds=time.perf_counter() - t0,
+                       roll_range=[float(roll.min()), float(roll.max())])
+        task_cfg = task_cfg.replace(sampling_type="cfdg_ddpm_x0", w=W_GUIDANCE)
+    else:  # infer
+        t0 = time.perf_counter()
+        inf_dir = cli_infer.main([f"pretrained_path={ckpt}", "num_samples=2", "device=cuda",
+                                  f"trainer.output_dir={out}"])
+        torch.cuda.synchronize()
+        manifest = json.loads((inf_dir / "manifest.json").read_text())
+        for m in manifest:
+            z = np.load(inf_dir / f"{m['clip']}.npz")
+            if z["trajectory"].shape != (mc.timesteps // 10, mc.frames, mc.pitches) or not \
+                    np.isfinite(z["roll"]).all() or not (inf_dir / f"{m['clip']}.mid").exists():
+                raise RuntimeError(f"infer wrote a bad clip {m}: {z['trajectory'].shape}")
+        if len(manifest) != 2:
+            raise RuntimeError(f"infer wrote {len(manifest)} clips")
+        reading.update(infer_seconds=time.perf_counter() - t0,
+                       notes=[m["notes"] for m in manifest])
+
+    # one training step and one reverse process by CUDA events
+    task = DiffusionTask(state.model, task_cfg)
+    step = make_train_step(task.loss_fn)
+    batch = fixed_batch(mc, dev, gen)
+    reading["step_ms_by_events"] = time_ms(lambda: step(state, batch, gen), 3, 1)
+    model, _ = load_lightning(str(ckpt), device=dev)
+    # the entry above ran the whole process; the events time a strided part
+    # of it, to keep the script inside its time
+    sampler = DiffusionTask(model, task_cfg.replace(sampling_steps=TIMED_STEPS))
+    rows = 2 if then == "infer" else 1
+    x_T = torch.randn(rows, mc.frames, mc.pitches, device=dev, generator=gen)
+    wav = None if then == "infer" else torch.from_numpy(
+        chord_wav(mc.frames * mc.mel.hop_length / mc.mel.sample_rate, mc.mel.sample_rate,
+                  SEED + 22))[None].to(dev)
+    out_x = []
+    reading["reverse_ms_per_step_by_events"] = time_ms(
+        lambda: out_x.append(sampler.sample(x_T, waveform=wav, generator=gen)[0]), 1, 0
+    ) / TIMED_STEPS
+    if not torch.isfinite(out_x[0]).all():
+        raise RuntimeError(f"{argv}: the reverse process gave non-finite values")
+    launches = kernel_launches(kernels)
+    if any(launches.values()):
+        raise RuntimeError(f"{argv} launched a kernel: {launches}")
+    reading.update(reverse_batch=rows, steps=mc.timesteps, timed_steps=TIMED_STEPS,
+                   sampler=task_cfg.sampling_type,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    del state, task, step, model, sampler
+    return reading
+
+
+def run_family_phases(tmp: pathlib.Path, sr: int, kernels) -> dict:
+    """The phases trainable, v2, unet and spec_unet; returns each path's
+    launch counts (all zero)."""
+    import shutil
+
+    # a train-only corpus (the 48 recordings): its `train` skips the post-fit
+    # test; spec_unet's adds one 10 s test recording (one window)
+    train_only = tmp / "train_only"
+    shutil.copytree(tmp / "data" / "MAPS" / "AkPnBcht", train_only / "MAPS" / "AkPnBcht")
+    one_test = tmp / "one_test"
+    shutil.copytree(train_only, one_test)
+    write_maps_corpus(one_test, 1, 10.0, sr, SEED + 1, subset="ENSTDkCl")
+    audio_dir = tmp / "window"
+    audio_dir.mkdir()
+    write_wav(audio_dir / "window.wav", chord_wav(20.48, sr, SEED + 23), sr)
+
+    paths = {}
+    t0 = time.perf_counter()
+    runs = {cond: run_family(["spec_roll", f"model.condition={cond}", "task.fused_train=true"],
+                             train_only, tmp / cond, kernels, "transcribe", audio_dir)
+            for cond in ("trainable_spec", "trainable_z")}
+    paths["trainable"] = {k: sum(r["launches"][k] for r in runs.values())
+                          for k in kernel_launches(kernels)}
+    phase("trainable", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, runs=runs,
+          launches=paths["trainable"])
+    for name, argv, data, then in (
+            # the preset's 500 steps (spec_roll's task would set the model's T to 200)
+            ("v2", ["spec_roll", "model_name=DiffRollv2", "task.timesteps=500"], train_only,
+             "transcribe"),
+            ("unet", ["pianoroll", "dataset.name=MAPS"], train_only, "infer"),
+            ("spec_unet", ["spec_roll", "model_name=SpecUnet"], one_test, "test")):
+        t0 = time.perf_counter()
+        reading = run_family(argv, data, tmp / name, kernels, then, audio_dir)
+        paths[name] = reading["launches"]
+        phase(name, seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, **reading)
+    return paths
+
+
+HOLD = (("trainable_spec", "ClassifierFreeDiffRoll", {"condition": "trainable_spec"}),
+        ("trainable_z", "ClassifierFreeDiffRoll", {"condition": "trainable_z"}),
+        ("v2", "DiffRollv2", {"spec_dropout": 0.5}),
+        ("v2debug", "DiffRollv2Debug", {"spec_dropout": 0.5}),
+        ("unet", "Unet", {}),
+        ("spec_unet", "SpecUnet", {"spec_dropout": 0.5}))
+FWD_GATE, GRAD_GATE = 1e-3, 2e-3   # f32 on both sides (tests/test_torch_variants.py)
+
+
+def run_variants_hold(dev) -> None:
+    """Each new configuration at its published widths, the same module on the
+    CPU and on the card on the same seeded weights (the zero-init heads given
+    N(0, 0.1^2)), over two windows, the second row unconditional where the
+    model is conditioned (spec_dropout 0.5 where the preset has none, so the
+    given mask is applied): the forward's max|d| / max|ref| < 1e-3 and every
+    parameter's gradient of one training loss (fixed t, noise and mask) < 2e-3,
+    the loss itself within 1e-4 relative. TF32 is off, as everywhere in this
+    script."""
+    from diffroll_tpu_torch import models
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+
+    readings, failed = {}, []
+    for label, name, kw in HOLD:
+        t0 = time.perf_counter()
+        torch.manual_seed(SEED)
+        cpu = models.build(name, **kw)
+        head = getattr(cpu.net, "output_projection", None)
+        if head is not None:
+            torch.nn.init.normal_(head.weight, std=0.1)
+        card = copy.deepcopy(cpu).to(dev)
+        mc = cpu.config
+        g = torch.Generator().manual_seed(SEED + 24)
+        batch = fixed_batch(mc, "cpu", g, 2)
+        draws = dict(t=torch.randint(0, mc.timesteps, (2,), generator=g),
+                     noise=torch.randn(2, mc.frames, mc.pitches, generator=g),
+                     uncond_mask=torch.tensor([False, True]))
+        x_t = torch.randn(2, mc.frames, mc.pitches, generator=g)
+        cond = cpu.conditioner(waveform=batch["audio"], roll=batch["frame"])
+        mask = None if cond is None else draws["uncond_mask"]
+        recipe = (dict(training_mode="epsilon", loss_type="huber") if mc.variant == "unet"
+                  else dict(training_mode="x_0", loss_type="l2"))
+        out, grads, loss = {}, {}, {}
+        for side, model in (("cpu", cpu), ("card", card)):
+            d = torch.device("cpu") if side == "cpu" else dev
+            model.eval()
+            with torch.no_grad():
+                out[side] = model.apply(x_t.to(d), draws["t"].to(d),
+                                        None if cond is None else cond.to(d),
+                                        None if mask is None else mask.to(d)).cpu()
+            model.train()
+            task = DiffusionTask(model, TaskConfig(timesteps=mc.timesteps, **recipe))
+            total, _ = task.loss_fn({k: v.to(d) for k, v in batch.items()}, None, True,
+                                    **{k: v.to(d) for k, v in draws.items()})
+            total.backward()
+            loss[side] = float(total.detach())
+            grads[side] = {n: p.grad.detach().cpu() for n, p in model.net.named_parameters()
+                           if p.grad is not None}
+        torch.cuda.synchronize()
+        fwd_rel, fwd_abs = rel_err(out["card"], out["cpu"])
+        leaf, grad_rel, grad_abs = worst_leaf(grads["card"], grads["cpu"])
+        readings[label] = {
+            "model": name, "params": sum(p.numel() for p in cpu.net.parameters()),
+            "forward_rel": fwd_rel, "forward_max_abs_err": fwd_abs, "worst_leaf": leaf,
+            "grad_rel": grad_rel, "grad_max_abs_err": grad_abs, "leaves": len(grads["cpu"]),
+            "loss_cpu": loss["cpu"], "loss_card": loss["card"], "seconds": time.perf_counter() - t0}
+        if not (fwd_rel < FWD_GATE and grad_rel < GRAD_GATE
+                and abs(loss["card"] - loss["cpu"]) <= 1e-4 * abs(loss["cpu"])):
+            failed.append(label)
+        del cpu, card, grads, out
+        torch.cuda.empty_cache()
+    phase("variants_hold", batch=2, tf32=False, configs=readings, failed=failed)
+    if failed:
+        raise RuntimeError(f"the card disagrees with the CPU on {failed}")
 
 
 def main() -> int:
@@ -777,10 +1053,7 @@ def main() -> int:
         ttask = DiffusionTask(trained, tcfg)
         tstate = TrainState.create(trained, 1e-4)
         tgen = torch.Generator(device=dev).manual_seed(SEED + 7)
-        fixed = {"frame": (torch.rand(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
-                                      generator=tgen) > 0.95).float(),
-                 "audio": 0.1 * torch.randn(TRAIN_BATCH, mc.frames * mc.mel.hop_length,
-                                            device=dev, generator=tgen)}
+        fixed = fixed_batch(mc, dev, tgen)
         draws = dict(t=torch.randint(0, mc.timesteps, (TRAIN_BATCH,), device=dev, generator=tgen),
                      noise=torch.randn(TRAIN_BATCH, mc.frames, mc.pitches, device=dev,
                                        generator=tgen),
@@ -817,6 +1090,8 @@ def main() -> int:
                                               all_kernels)
         path_launches["baseline"] = run_baseline_phase(tmp / "data", tmp / "baseline_out",
                                                        all_kernels)
+        path_launches.update(run_family_phases(tmp, sr, all_kernels))
+    run_variants_hold(dev)
 
     net = model.net
     dil = mc.dilations()

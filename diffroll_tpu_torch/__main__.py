@@ -4,8 +4,11 @@ Commands:
   transcribe  a folder of audio files -> piano rolls + MIDI
               (pretrained_path=<file.ckpt> dataset.audio_path=<dir> device=cuda|cpu)
   train       fit a model on MAPS / MAESTRO, then score the test split
-              ([spec_roll|unsupervised_pretrained] dataset.root=<dir>
-              task.fused_train=true device=cuda|cpu)
+              ([spec_roll|unsupervised_pretrained|pianoroll|baseline]
+              dataset.root=<dir> model_name=<preset> task.fused_train=true
+              device=cuda|cpu); every model preset trains: the U-Nets
+              (pianoroll, model_name=SpecUnet), DiffRollv2 and
+              model.condition=trainable_spec|trainable_z
   test        full reverse diffusion over the test split + frame / note F1
               (pretrained_path=<file.ckpt> dataset.root=<dir>)
   sample      transcription, inpainting or generation with the trajectory
@@ -18,9 +21,11 @@ Commands:
   distill     progressive distillation of a checkpoint's sampler into few-step
               students (pretrained_path=<file.ckpt> dataset.root=<dir>
               distill.start_steps=65 distill.stages=5 task.fused_train=true)
+  infer       unconditional rolls from noise with a U-Net checkpoint
+              (pretrained_path=<file.ckpt> num_samples=N), written as npz
+              with the trajectory and as MIDI
 
 Every command takes `config=<file>.yaml` (its keys layered under the CLI's).
-Not ported yet: the JAX package's `infer` entry (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -29,11 +34,11 @@ import sys
 
 
 def _dispatch(argv) -> int:
-    from .cli import distill, sample, serve, sweep, test, train, transcribe
+    from .cli import distill, infer, sample, serve, sweep, test, train, transcribe
 
     commands = {"transcribe": transcribe.main, "train": train.main, "test": test.main,
                 "sample": sample.main, "sweep": sweep.main, "serve": serve.main,
-                "distill": distill.main}
+                "distill": distill.main, "infer": infer.main}
     if not argv or argv[0] in ("-h", "--help") or argv[0] not in commands:
         print(__doc__)
         return 0 if argv and argv[0] in ("-h", "--help") else 2

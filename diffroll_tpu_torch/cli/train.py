@@ -11,7 +11,13 @@ fine-tuning recipes (counterpart of `diffroll_tpu/cli/train.py`).
         dual=true dataset2.name=MAESTRO             # the dual-loss recipe
 
 `task.fused_train=true` runs the residual stack through the training kernels
-on a CUDA device. After `fit` the test split is evaluated as `test` would
+on a CUDA device, for the model families they cover (the 1-D stack with
+fixed or no conditioning); the others train through their `nn.Module`s.
+Every model preset trains here, the U-Nets too (`train pianoroll`, or
+`model_name=SpecUnet`). Each validation writes the first batch's one-step
+prediction as `figures/val_rolls_<step>.png`, and for trainable
+conditioning `figures/val_trainable_params_<step>.png`; without matplotlib,
+one stderr line says so. After `fit` the test split is evaluated as `test` would
 evaluate the checkpoint (on the EMA weights when `trainer.ema_decay` is set)
 and `test_metrics.json` is written; a layout without a test split skips it
 with one stderr line.
@@ -31,6 +37,43 @@ from ..train import Checkpointer, TrainState, fit
 from ..utils.logging import MetricLogger
 from . import _common
 from .test import run_test
+
+
+def make_val_hook(task, logger: MetricLogger):
+    """`fit`'s hook on the first validation batch: the one-step prediction
+    beside the labels and the conditioner (`roll_figure`), and the heatmaps
+    of the learned conditioning where the net has any (`param_heatmaps`),
+    saved as PNGs. Its draws come from a generator of its own (seed 0)."""
+    warned = False
+
+    def val_hook(state, batch):
+        nonlocal warned
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            if not warned:
+                print("train: matplotlib is not installed; no validation figures",
+                      file=sys.stderr)
+                warned = True
+            return {}
+        from ..viz import param_heatmaps, roll_figure
+        from ..viz.figures import _mpl
+
+        gen = torch.Generator(device=state.model.device).manual_seed(0)
+        with torch.no_grad():
+            _, (_, tensors) = task.loss_fn(batch, gen, False)
+        spec = tensors.get("spec")
+        figs = {"val/rolls": roll_figure(tensors["pred_roll"].cpu().numpy(),
+                                         tensors["label_roll"].cpu().numpy(),
+                                         None if spec is None else spec.cpu().numpy()),
+                "val/trainable_params": param_heatmaps(state.model.net)}
+        for tag, fig in figs.items():
+            if fig is not None:
+                logger.log_figure(state.step, tag, fig)
+                _mpl().close(fig)
+        return {}
+
+    return val_hook
 
 
 def main(argv: Optional[List[str]] = None) -> TrainState:
@@ -72,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     print(f"run dir: {run_dir}", file=sys.stderr)
     state = fit(task, state, train_loader, trainer=cfg.trainer, val_loader=val_loader,
                 checkpointer=ckpt, logger=logger,
-                config_record=_common.config_record(cfg))
+                config_record=_common.config_record(cfg), val_hook=make_val_hook(task, logger))
 
     # the test split, on what `test pretrained_path=<last.ckpt>` loads: the
     # EMA weights when the run kept them (the returned state keeps the raw ones)

@@ -11,9 +11,13 @@ AttributeDict, none of which need to be installed. The tolerant unpickler
 stubs any missing class with a dict and `plain_hparams` coerces the stubs
 to plain Python values.
 
-`state_dict_from_jax` is the inverse of the JAX package's
-`convert_state_dict`: it carries JAX params into a port state_dict
-(kernel (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I)). Gradients are the
+`state_dict_from_jax` carries JAX params into a port state_dict, for every
+variant: kernel (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I), 4-D kernels
+to the 2-D nets' layouts. For the 1-D nets it is the inverse of the JAX
+package's `convert_state_dict`; for the 2-D DiffRoll net it is not, since
+that function reads a reference (O, I, k88, kT) kernel as (kT, k88, I, O)
+(see `_kernel`). The U-Nets have no reference checkpoint: their names follow
+the flax scopes. Gradients are the
 same tree as the params, so `grads_from_jax` carries them the same way, and
 `adam_state_from_optax` carries `optax.adam`'s mu / nu / count into
 `torch.optim.Adam`'s per-parameter state.
@@ -28,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import pickle
+import re
 import zipfile
 from typing import Any, Dict, Optional, Tuple
 
@@ -267,35 +272,85 @@ def load_lightning(
     return model.to(device).eval(), task_updates_from_hparams(hparams)
 
 
+def _jax_leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _jax_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+_FLAX_AUTO = re.compile(r"(Conv|GroupNorm|Dense)_(\d+)")
+
+
+def _unet_scopes(p: Dict[str, Any]) -> Dict[str, str]:
+    """flax U-Net scope -> the port's module path. A `PreNormResidual`'s
+    attention is built in its parent's scope, so flax names it
+    `LinearAttention_<k>` (k in build order: the down levels, then the up
+    levels) or `Attention_0` (the bottleneck); the port nests it as `fn`."""
+    def level(kind):
+        return sorted((s for s in p if re.fullmatch(rf"{kind}_\d+_attn", s)),
+                      key=lambda s: int(s.split("_")[1]))
+    homes = {f"LinearAttention_{k}": f"{s}.fn"
+             for k, s in enumerate(level("down") + level("up"))}
+    homes["Attention_0"] = "mid_attn.fn"
+    return homes
+
+
+def _unet_segment(seg: str) -> str:
+    """flax's automatic names -> the port's: Conv_0 -> conv1, GroupNorm_1 ->
+    norm2, Dense_0 -> linear1."""
+    m = _FLAX_AUTO.fullmatch(seg)
+    if m is None:
+        return seg
+    return {"Conv": "conv", "GroupNorm": "norm", "Dense": "linear"}[m[1]] + str(int(m[2]) + 1)
+
+
+def _kernel(a: np.ndarray, unet: bool, transposed: bool) -> np.ndarray:
+    """A flax kernel in the port's weight layout."""
+    if a.ndim == 2:      # Dense (I, O) -> Linear (O, I)
+        return a.transpose(1, 0)
+    if a.ndim == 3:      # Conv1d (K, I, O) -> (O, I, K)
+        return a.transpose(2, 1, 0)
+    if transposed:       # flax ConvTranspose (kT, k88, I, O) -> (I, O, kT, k88), flipped
+        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if unet:             # (kT, k88, I, O) on (B, T, 88, C) -> (O, I, kT, k88) on (B, C, T, 88)
+        return a.transpose(3, 2, 0, 1)
+    # the 2-D DiffRoll net: (kT, k88, I, O) -> the reference's (O, I, k88, kT)
+    # on (B, C, 88, T); both spatial axes swap
+    return a.transpose(3, 2, 1, 0)
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX params ({'params': tree} or the tree) -> port state_dict."""
+    """JAX params ({'params': tree} or the tree) -> port state_dict, for every
+    variant. Kernels go to the port's layouts (`_kernel`), GroupNorm `scale`
+    to `weight`, and the learned unconditional embeddings to the reference's
+    (width, frames): `trainable_parameters` (n_mels, spec_frames) and each
+    block's `uncon_z` (2C, frames)."""
     p = params.get("params", params)
+    unet = "init_conv" in p
+    homes = _unet_scopes(p) if unet else {}
     out: Dict[str, torch.Tensor] = {}
-
-    def put(name: str, leaf: str, arr) -> None:
+    for path, arr in _jax_leaves(p):
         a = np.asarray(arr, dtype=np.float32)
-        if leaf == "bias":
-            out[f"{name}.bias"] = torch.from_numpy(a.copy())
-        elif a.ndim == 3:    # Conv1d kernel (K, I, O) -> (O, I, K)
-            out[f"{name}.weight"] = torch.from_numpy(a.transpose(2, 1, 0).copy())
-        elif a.ndim == 2:    # Dense kernel (I, O) -> (O, I)
-            out[f"{name}.weight"] = torch.from_numpy(a.transpose(1, 0).copy())
+        *scopes, leaf = path
+        if unet:
+            scopes = [homes.get(s, s) for s in scopes[:1]] + scopes[1:]
+            scopes = [_unet_segment(s) for s in scopes]
         else:
-            raise ValueError(f"unexpected leaf {name}/{leaf} of shape {a.shape}")
-
-    for scope, sub in p.items():
-        if scope.startswith("residual_layers_"):
-            idx = scope[len("residual_layers_"):]
-            for mod, leaves in sub.items():
-                for leaf, arr in leaves.items():
-                    put(f"residual_layers.{idx}.{mod}", leaf, arr)
-        elif scope == "diffusion_embedding":
-            for mod, leaves in sub.items():
-                for leaf, arr in leaves.items():
-                    put(f"diffusion_embedding.{mod}", leaf, arr)
+            scopes = [s.replace("residual_layers_", "residual_layers.") for s in scopes]
+        if leaf in ("trainable_parameters", "uncon_z"):
+            name, a = ".".join(scopes + [leaf]), a.transpose(1, 0)
+        elif leaf == "bias":
+            name = ".".join(scopes + ["bias"])
+        elif leaf == "scale":
+            name = ".".join(scopes + ["weight"])
+        elif leaf == "kernel":
+            name = ".".join(scopes + ["weight"])
+            a = _kernel(a, unet, transposed=unet and scopes[-1].endswith("_us"))
         else:
-            for leaf, arr in sub.items():
-                put(scope, leaf, arr)
+            raise ValueError(f"unexpected leaf {'/'.join(path)} of shape {a.shape}")
+        out[name] = torch.from_numpy(np.array(a, order="C"))
     return out
 
 

@@ -3,9 +3,9 @@
 `compose(name, overrides)` resolves a preset and applies dotted overrides,
 with `config=<file>.yaml` layered under them; `from_argv` wires it to a CLI.
 
-The `pianoroll` / `infer` presets compose as data; building their U-Net
-raises NotImplementedError naming the ROADMAP item. PyYAML is imported only
-where `config=` is given: the port runs without it otherwise.
+The `pianoroll` / `infer` presets train and sample the unconditional U-Net.
+PyYAML is imported only where `config=` is given: the port runs without it
+otherwise.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Model registry (counterpart of `diffroll_tpu/models/__init__.py`): the
-same presets as data. Building a variant the port does not cover yet
-raises NotImplementedError naming the ROADMAP item that ports it."""
+same presets as data, every one of which builds: the 1-D stacks, the 2-D
+DiffRollv2 family and the U-Nets."""
 
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
-"""Model config and wrapper (counterpart of `diffroll_tpu/models/base.py`,
-1-d variant): the denoiser net plus its log-mel front-end.
+"""Model config and wrapper (counterpart of `diffroll_tpu/models/base.py`):
+the denoiser net of the config's variant plus its log-mel front-end.
 
 `DiffRollModel` is an `nn.Module` that owns the weights (`.net`, with the
-reference's parameter names) and the mel buffers (`.mel`); `.to(device)`
-moves both.
+reference's parameter names where the reference has them) and the mel
+buffers (`.mel`); `.to(device)` moves both. Variants: '1d' (`DiffRollNet`),
+'2d' (`DiffRollNet2D`), 'unet' (`UnetNet`), 'spec_unet' (`SpecUnetNet`).
 """
 
 from __future__ import annotations
@@ -16,14 +17,9 @@ from torch import nn
 
 from ..dsp.mel import MelConfig, MelSpectrogram
 from ..dsp.normalize import min_max_normalize
-from ..nn.denoiser import DiffRollNet
+from ..nn.denoiser import DiffRollNet, DiffRollNet2D
+from ..nn.unet import SpecUnetNet, UnetNet
 from . import conditioning
-
-NOT_PORTED = {
-    "2d": "ROADMAP.md Queue 1 item 20 (2-D variant)",
-    "unet": "ROADMAP.md Queue 1 item 21 (U-Nets)",
-    "spec_unet": "ROADMAP.md Queue 1 item 21 (U-Nets)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,29 +64,50 @@ class DiffRollModel(nn.Module):
     def __init__(self, config: DiffRollConfig):
         super().__init__()
         c = config
-        if c.variant in NOT_PORTED:
-            raise NotImplementedError(
-                f"variant {c.variant!r} is not ported yet: {NOT_PORTED[c.variant]}")
-        if c.variant != "1d":
-            raise ValueError(f"unknown variant {c.variant!r}")
         self.config = config
-        self.net = DiffRollNet(
-            residual_channels=c.residual_channels,
-            residual_layers=c.residual_layers,
-            kernel_size=c.kernel_size,
-            dilation_base=c.dilation_base,
-            dilation_bound=c.dilation_bound,
-            max_steps=c.timesteps,
-            out_features=c.pitches,
-            unconditional=c.unconditional,
-            condition=c.condition,
-            n_mels=c.n_mels,
-        )
+        if c.variant == "1d":
+            self.net = DiffRollNet(
+                residual_channels=c.residual_channels,
+                residual_layers=c.residual_layers,
+                kernel_size=c.kernel_size,
+                dilation_base=c.dilation_base,
+                dilation_bound=c.dilation_bound,
+                max_steps=c.timesteps,
+                out_features=c.pitches,
+                unconditional=c.unconditional,
+                condition=c.condition,
+                frames=c.frames,
+                spec_frames=c.mel.num_frames(c.frames * c.mel.hop_length),
+                n_mels=c.n_mels,
+            )
+        elif c.variant == "2d":
+            self.net = DiffRollNet2D(
+                residual_channels=c.residual_channels,
+                residual_layers=c.residual_layers,
+                kernel_size=c.kernel_size,
+                dilation_base=c.dilation_base,
+                dilation_bound=c.dilation_bound,
+                max_steps=c.timesteps,
+                out_features=c.pitches,
+                unconditional=c.unconditional,
+                project_cond=c.cond_source == "spec",
+                n_mels=c.n_mels,
+            )
+        elif c.variant == "unet":
+            self.net = UnetNet(dim=c.residual_channels, dim_mults=c.dim_mults,
+                               use_convnext=c.use_convnext, convnext_mult=c.convnext_mult,
+                               resnet_block_groups=c.resnet_block_groups)
+        elif c.variant == "spec_unet":
+            self.net = SpecUnetNet(dim=c.residual_channels, dim_mults=c.dim_mults,
+                                   convnext_mult=c.convnext_mult, n_mels=c.n_mels,
+                                   pitches=c.pitches)
+        else:
+            raise ValueError(f"unknown variant {c.variant!r}")
         self.mel = MelSpectrogram(c.mel) if c.cond_source == "spec" else None
 
     @property
     def device(self) -> torch.device:
-        return self.net.input_projection.weight.device
+        return next(self.net.parameters()).device
 
     def normalize_roll(self, roll: torch.Tensor) -> torch.Tensor:
         """Min-max the (B, T, 88) roll to the `norm_args` range; mode 'none'
@@ -129,7 +146,10 @@ class DiffRollModel(nn.Module):
         return conditioning.apply_inpainting_mask(cond, inpainting_t, inpainting_f)
 
     def apply(self, x_t, t, cond, uncond_mask=None, cond_proj=None):
-        """Denoiser forward: (B, T, 88) x (B,) x (B, T, n_cond) -> (B, T, 88)."""
+        """Denoiser forward: (B, T, 88) x (B,) x (B, T, n_cond) -> (B, T, 88).
+        The U-Nets take no `cond_proj`."""
+        if cond_proj is None:
+            return self.net(x_t, t, cond, uncond_mask)
         return self.net(x_t, t, cond, uncond_mask, cond_proj=cond_proj)
 
     def cond_projections(self, cond, uncond_mask=None):

@@ -15,6 +15,11 @@ requested or `use_megakernel=False` it runs the step loop, whose forward
 goes through the gated-stack kernel (K1) when `use_fused` resolves. On CPU
 both routes run their plain PyTorch versions.
 
+The model families the kernels do not cover (`supports_fused` is false:
+trainable conditioning, the 2-D net, the U-Nets) take the `nn.Module` path
+in both, as the JAX package takes XLA; a U-Net, which has no separable
+conditioner projection, runs the conditioned forward every step.
+
 Guidance note (as in the JAX package): the unconditional branch of every
 guided sampler, cfdg_ddim_x0 included, conditions on spec := -1.
 """
@@ -303,24 +308,36 @@ class DiffusionTask:
 
             return self.make_step_fn_from_net(net, cond)
 
-        # the plain module path, conditioner projections precomputed per clip
-        if cond is None or mc.unconditional:
-            proj = None
-        elif generation:
-            proj = model.cond_projections(
-                cond, torch.ones(cond.shape[0], dtype=torch.bool, device=cond.device))
-        elif guided:
-            proj = model.cfg_cond_projections(cond)
+        if not hasattr(model.net, "cond_projections"):
+            # nets without a separable conditioner projection (the U-Nets) run
+            # the conditioned forward every step
+            def predict(x, t_vec):
+                if cond is None or mc.unconditional:
+                    return model.apply(x, t_vec, None)
+                if generation:
+                    all_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+                    return model.apply(x, t_vec, cond, all_mask)
+                if guided:
+                    return cfg_mix(*model.apply_cfg(x, t_vec, cond), cfg.w)
+                return model.apply(x, t_vec, cond)
         else:
-            proj = model.cond_projections(cond)
+            # the plain module path, conditioner projections precomputed per clip
+            if cond is None or mc.unconditional:
+                proj = None
+            elif generation:
+                proj = model.cond_projections(
+                    cond, torch.ones(cond.shape[0], dtype=torch.bool, device=cond.device))
+            elif guided:
+                proj = model.cfg_cond_projections(cond)
+            else:
+                proj = model.cond_projections(cond)
 
-        def predict(x, t_vec):
-            if proj is None:
-                return model.apply(x, t_vec, None)
-            if guided:
-                pc, pu = model.apply_cfg(x, t_vec, cond_proj=proj)
-                return cfg_mix(pc, pu, cfg.w)
-            return model.apply(x, t_vec, None, cond_proj=proj)
+            def predict(x, t_vec):
+                if proj is None:
+                    return model.apply(x, t_vec, None)
+                if guided:
+                    return cfg_mix(*model.apply_cfg(x, t_vec, cond_proj=proj), cfg.w)
+                return model.apply(x, t_vec, None, cond_proj=proj)
 
         def step(x, t, t_prev, noise):
             t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)

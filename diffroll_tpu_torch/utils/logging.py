@@ -1,8 +1,9 @@
-"""Run logging: a JSONL metrics stream and the config record (counterpart
-of `diffroll_tpu/utils/logging.py`). Every scalar goes to
-`<run_dir>/metrics.jsonl`. The JAX package also writes TensorBoard event
-files when `torch.utils.tensorboard` imports; that needs the `tensorboard`
-package, which the port does not require, so the port writes JSONL only."""
+"""Run logging: a JSONL metrics stream, the config record and figures
+(counterpart of `diffroll_tpu/utils/logging.py`). Every scalar goes to
+`<run_dir>/metrics.jsonl`, every figure to a PNG under `<run_dir>/figures/`.
+The JAX package also writes TensorBoard event files when
+`torch.utils.tensorboard` imports; that needs the `tensorboard` package,
+which the port does not require, so the port writes no event files."""
 
 from __future__ import annotations
 
@@ -26,6 +27,13 @@ class MetricLogger:
     def log_config(self, config: Dict[str, Any]):
         path = self.run_dir / "config.json"
         path.write_text(json.dumps({k: str(v) for k, v in config.items()}, indent=2))
+
+    def log_figure(self, step: int, tag: str, fig):
+        """Save a matplotlib figure as `figures/<tag>_<step>.png` (the
+        reference's validation grids)."""
+        figs = self.run_dir / "figures"
+        figs.mkdir(exist_ok=True)
+        fig.savefig(figs / f"{tag.replace('/', '_')}_{step:08d}.png", dpi=100)
 
     def close(self):
         self._jsonl.close()

@@ -1,5 +1,6 @@
-"""Figures: roll grids and the denoising animation (matplotlib, imported lazily)."""
+"""Figures: roll grids, heatmaps of the learned conditioning and the
+denoising animation (matplotlib, imported lazily)."""
 
-from .figures import animate_trajectory, roll_figure, save_trajectory_gif
+from .figures import animate_trajectory, param_heatmaps, roll_figure, save_trajectory_gif
 
-__all__ = ["roll_figure", "animate_trajectory", "save_trajectory_gif"]
+__all__ = ["roll_figure", "param_heatmaps", "animate_trajectory", "save_trajectory_gif"]

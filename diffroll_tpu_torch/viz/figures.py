@@ -1,12 +1,11 @@
-"""Roll figures and denoising GIFs on numpy (counterpart of
-`diffroll_tpu/viz/figures.py`: `roll_figure`, `animate_trajectory`,
-`save_trajectory_gif`).
+"""Roll figures, heatmaps of the learned conditioning and denoising GIFs on
+numpy (counterpart of `diffroll_tpu/viz/figures.py`: `roll_figure`,
+`param_heatmaps`, `animate_trajectory`, `save_trajectory_gif`).
 
 Equivalent of the reference's figure grids (`visualize_figure`, reference
 task/diffusion.py:643-649, 1069-1076) and its reverse-process animation
 (`animate_sampling`, :1078-1088, GIF export :356-378). matplotlib is imported
-inside the functions, so the module imports without it. `param_heatmaps`
-renders trainable conditioning, which is not ported (ROADMAP item 19).
+inside the functions, so the module imports without it.
 """
 
 from __future__ import annotations
@@ -57,6 +56,30 @@ def roll_figure(
                               origin="lower", cmap="viridis")
             axes[r][j].set_title(f"spec {j}", fontsize=8)
     for ax in fig.axes:
+        ax.set_xticks([])
+        ax.set_yticks([])
+    fig.tight_layout()
+    return fig
+
+
+def param_heatmaps(net, names=("trainable_parameters", "uncon_z"), max_panels: int = 4):
+    """Heatmaps of a net's learned unconditional embeddings (the reference
+    logs them every validation epoch), or None when it has none. The port
+    keeps them in the reference's (width, frames) layout, the transpose of
+    the JAX package's, so each is drawn as stored; panels go in the order of
+    the JAX package's sorted parameter tree, which sorting the dotted names
+    reproduces."""
+    leaves = [(name, p.detach().cpu().numpy()) for name, p in sorted(net.named_parameters())
+              if any(n in name for n in names) and p.ndim == 2][:max_panels]
+    if not leaves:
+        return None
+    plt = _mpl()
+    fig, axes = plt.subplots(1, len(leaves), figsize=(4 * len(leaves), 2.5),
+                             squeeze=False)
+    for ax, (name, leaf) in zip(axes[0], leaves):
+        im = ax.imshow(leaf, aspect="auto", origin="lower", cmap="coolwarm")
+        ax.set_title(name.rsplit(".", 1)[-1], fontsize=7)
+        fig.colorbar(im, ax=ax, fraction=0.05)
         ax.set_xticks([])
         ax.set_yticks([])
     fig.tight_layout()

@@ -84,7 +84,7 @@ def test_cli_usage_and_errors(tmp_path):
     from diffroll_tpu_torch.cli import transcribe
 
     assert entry._dispatch(["--help"]) == 0
-    assert entry._dispatch(["infer"]) == 2  # a verb that is not ported: usage, code 2
+    assert entry._dispatch(["no_such_verb"]) == 2  # an unknown verb: usage, code 2
     if not torch.cuda.is_available():
         # the entry points run on the card unless the caller asks for the CPU
         with pytest.raises(SystemExit, match="no CUDA device"):

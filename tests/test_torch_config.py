@@ -6,6 +6,7 @@ import dataclasses
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -71,8 +72,19 @@ def test_mel_and_task_configs_match():
     ("ClassifierFreeDiffRoll", {"condition": "trainable_z"}),
 ])
 def test_unported_variants_name_their_roadmap_item(name, overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        tmodels.build(name, residual_channels=16, residual_layers=2, **overrides)
+    """The six configurations the first slices left unported (ROADMAP Queue 1
+    items 19-21) now build, with the parameter names and shapes that
+    `state_dict_from_jax` makes of the JAX package's init."""
+    from diffroll_tpu_torch.compat import state_dict_from_jax
+
+    kw = dict(residual_channels=16, residual_layers=2, frames=16, timesteps=10, **overrides)
+    # the init's tree, traced without compiling it (15-20 s for a U-Net on a CPU)
+    shapes = jax.eval_shape(jmodels.build(name, **kw).init, jax.random.key(0))
+    params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    want = {k: tuple(v.shape) for k, v in state_dict_from_jax(params).items()}
+    got = {k: tuple(v.shape) for k, v in tmodels.build(name, **kw).net.state_dict().items()
+           if not k.endswith("diffusion_embedding.embedding")}
+    assert got == want
 
 
 @pytest.mark.parametrize("kind", ["linear", "cosine", "quadratic", "sigmoid"])
