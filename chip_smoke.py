@@ -89,51 +89,83 @@ exits non-zero):
                 forward max|d| / max|ref| < 1e-3, every parameter gradient of a
                 training loss < 2e-3, the loss within 1e-4 relative; the worst
                 leaf is printed
- 16. k1         the gated-stack kernel vs its plain version at the flagship
+ 16. bf16       `model.dtype=bfloat16` at the flagship's widths through the modules
+                (512 x 15, B=16, task.fused_train=false; no kernel covers the bf16
+                modules): one training step by CUDA events (the median of 3 after a
+                warm-up) in f32 with TF32 off, with TF32, and in bf16; on the same
+                seeded weights, batch and draws the bf16 loss within 1e-2 relative
+                of f32 and every parameter gradient max|d| / max|ref| < 0.05, the
+                worst above 1e-3 (bf16 differs from f32), a block's outputs bf16
+                (the cosine of the whole gradient printed beside). Then `cli.train.main
+                spec_roll model.condition=trainable_spec model.dtype=bfloat16
+                trainer.adam_moments_dtype=bfloat16` on the train recordings: 3
+                steps, finite losses, bf16 moments (their bytes against f32's); then
+                `cli.transcribe.main` on one 20.48 s window of that checkpoint, and
+                a strided 50-step process by events in bf16 and in f32 on the same
+                draws: ms a step each and the trajectory's error (not gated: a
+                random model amplifies bf16 rounding, ROADMAP Queue 3)
+ 17. dp         the data axis. Two ranks share the one card in a gloo group (NCCL
+                refuses two ranks on one GPU), each a process of this script
+                (`--dp-worker`): `cli.train.main spec_roll task.fused_train=true`
+                at global B=16 for 3 steps on phase 5's corpus (8 rows a rank; K3 and
+                K4 once a step on each rank; both ranks end with the same parameter
+                bits; one run directory, rank 0's); one fixed-draw step against
+                the single-process step at B=16 (every gradient rel < 0.05 through
+                K3 + K4, < 1e-4 through the f32 modules); `cli.test.main` on phase
+                5's checkpoint (n_clips 4, K2 once a rank at B=4, the rolls rank 0
+                gathered within rel 0.05 of the single-process test's, its 8 rows
+                distinct, each row's error printed, and every metric within 1e-3);
+                one `distill` stage (K1 twice and K3, K4 once a step on each rank;
+                rank 0 alone writes). Then one
+                process at world size 1 over NCCL, in the environment `torchrun
+                --nproc_per_node=1` sets (`--nccl-worker`): `train`, 3 steps. The
+                2-rank step's ms is printed under the label "2 ranks sharing one
+                card: not a scaling figure". Steps and stages are cut, not widths
+ 18. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 17. k2         the whole-process sampler vs its plain version at B=1 and at
+ 19. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 18. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 20. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 19. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 21. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 20. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 21. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 22. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 23. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
- 22. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+ 24. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
                 stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
                 0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 17: the error against the unrounded f32 weights,
+     beside them in phase 19: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 23. k3         the training forward-with-saves kernel vs its plain version at
+ 25. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 24. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+ 26. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
                 512), the conditional rows then spec := -1: rel < 0.05 and the
                 same bits on a second run
- 25. k4         the training backward kernel vs its plain version from the same
+ 27. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 26. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 28. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 27. distill_grads one guided distill loss + backward at B=16 with fixed
+ 29. distill_grads one guided distill loss + backward at B=16 with fixed
                 transitions and noise: the teacher through K1 and the student
                 through K3 + K4, against both through the nn.Modules on the
                 bf16-rounded weights: every student gradient rel < 0.05, the
                 losses within 1e-2 relative
- 28. times      warm median times of the four kernels and their plain versions
+ 30. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
                 under `*_b8`), of a whole training step at B=16 by three
@@ -158,7 +190,8 @@ its count on its first path, transcribe for K1 and K2, train for K3 and K4;
 `launches_by_path` gives the count of each user-facing path that the script
 drives with the counters reset just before and read just after (transcribe,
 train, test, sample, serve, distill, distill_test: the students' test runs,
-baseline, and trainable, v2, unet and spec_unet, each 0 of every kernel).
+baseline, trainable, v2, unet, spec_unet and bf16, each 0 of every kernel,
+and dp_train, dp_test and dp_distill: rank 0's counts in phase dp).
 K1's `max_abs_err` is its single pass's; `max_abs_err_step_loop` is the
 largest of its step loops' 200-step trajectories against the plain ones.
 """
@@ -170,6 +203,7 @@ import importlib
 import io
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -910,6 +944,457 @@ def run_variants_hold(dev) -> None:
         raise RuntimeError(f"the card disagrees with the CPU on {failed}")
 
 
+BF16_LOSS_GATE = 1e-2      # the bf16 loss against f32 (the fused loss's gate, phase train_grads)
+BF16_DIFFERS = 1e-3        # the worst bf16 leaf must differ from f32 by more: bf16's rounding
+                           # (2^-8 relative) reaches it, two f32 runs of one chain do not
+DP_FUSED_GATE, DP_MODULES_GATE = GATE, 1e-4   # the 2-rank step's gradients against 1 rank's
+DP_METRICS_TOL = 1e-3      # the 2-rank test's metrics against the single-process test's
+DP_TIMEOUT_S = 900
+
+
+def seeded_step_inputs(mc, dev, b: int = TRAIN_BATCH, seed: int = SEED + 31):
+    """A global batch of `b` windows and its draws (t, noise, dropout mask),
+    from a CPU generator, so every process makes the same ones."""
+    g = torch.Generator().manual_seed(seed)
+    batch = {"frame": (torch.rand(b, mc.frames, mc.pitches, generator=g) > 0.95).float(),
+             "audio": 0.1 * torch.randn(b, mc.frames * mc.mel.hop_length, generator=g)}
+    draws = {"t": torch.randint(0, mc.timesteps, (b,), generator=g),
+             "noise": torch.randn(b, mc.frames, mc.pitches, generator=g),
+             "uncond_mask": torch.rand(b, generator=g) < 0.1}
+    return ({k: v.to(dev) for k, v in batch.items()}, {k: v.to(dev) for k, v in draws.items()})
+
+
+def params_digest(net) -> str:
+    """A hash of every parameter's bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in net.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_bf16_phase(tmp: pathlib.Path, ckpt: pathlib.Path, kernels) -> dict:
+    """`model.dtype=bfloat16` and `trainer.adam_moments_dtype=bfloat16` at the
+    flagship's widths, through the modules (no kernel covers them): one
+    training step at B=16 by events in f32 with TF32 off, with TF32, and in
+    bf16; the bf16 loss and gradients against f32 on the same weights, batch
+    and draws; then the train entry with both fields on trainable_spec (3
+    steps), and transcribe of one window on its checkpoint, timed over a
+    strided part, beside the same model in f32. Returns its launch counts
+    (all zero)."""
+    from diffroll_tpu_torch import models
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.cli import transcribe as cli_transcribe
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    f32, _ = load_lightning(str(ckpt), device=dev)
+    bf16 = models.build("ClassifierFreeDiffRoll", dtype="bfloat16").to(dev)
+    bf16.net.load_state_dict(f32.net.state_dict())
+    mc = f32.config
+    batch, draws = seeded_step_inputs(mc, dev)
+    loss, grads = {}, {}
+    with torch.no_grad():   # a block of the bf16 net computes and returns bf16 on the card
+        blk = bf16.net.residual_layers[0]
+        t_emb = bf16.net.diffusion_embedding(draws["t"])
+        h = torch.zeros(TRAIN_BATCH, mc.frames, blk.diffusion_projection.out_features,
+                        device=dev)
+        block_dtypes = sorted({str(v.dtype) for v in blk(h, t_emb, blk.cond_proj(
+            torch.zeros(TRAIN_BATCH, mc.frames, mc.n_mels, device=dev)))})
+    for label, model in (("f32", f32), ("bf16", bf16)):
+        model.train()
+        model.net.zero_grad(set_to_none=True)
+        task = DiffusionTask(model, TaskConfig(timesteps=mc.timesteps))
+        total, _ = task.loss_fn(batch, None, True, **draws)
+        total.backward()
+        loss[label] = float(total.detach())
+        grads[label] = {n: p.grad.detach().clone() for n, p in model.net.named_parameters()}
+        model.net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    leaf_rel = {n: rel_err(grads["bf16"][n], g)[0] for n, g in grads["f32"].items()}
+    worst = max(leaf_rel, key=leaf_rel.get)
+    over = sorted((n for n, r in leaf_rel.items() if r >= GATE), key=leaf_rel.get, reverse=True)
+    loss_rel = abs(loss["bf16"] - loss["f32"]) / abs(loss["f32"])
+    flat = {k: torch.cat([g.flatten() for g in grads[k].values()]) for k in grads}
+    cos = float(torch.nn.functional.cosine_similarity(flat["bf16"], flat["f32"], dim=0))
+    del grads, flat
+
+    def step_ms(model):
+        task = DiffusionTask(model, TaskConfig(timesteps=mc.timesteps))
+        st = TrainState.create(model, 0.0)   # lr 0: the weights stay the compared ones
+        step = make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws))
+        return time_ms(lambda: step(st, batch, None), 3, 1)
+
+    times = {"step_f32_ms": step_ms(f32)}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    times["step_tf32_ms"] = step_ms(f32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    times["step_bf16_ms"] = step_ms(bf16)
+    del f32, bf16
+    torch.cuda.empty_cache()
+
+    # the entries: train (trainable_spec, bf16 compute, bf16 moments), then transcribe
+    out = tmp / "bf16_out"
+    state = cli_train.main([
+        "spec_roll", "model.condition=trainable_spec", "model.dtype=bfloat16",
+        "trainer.adam_moments_dtype=bfloat16", f"dataset.root={tmp / 'train_only'}",
+        "device=cuda", "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=1",
+        "trainer.log_every_n_steps=1", f"dataloader.train_batch_size={TRAIN_BATCH}",
+        "audio_format=wav", f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    (run_dir,) = out.glob("*/*/train-*")
+    records = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/diffusion_loss"] for r in records if "train/diffusion_loss" in r]
+    moments = [v for st in state.optimizer.state.values() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    moment_bytes = sum(m.numel() * m.element_size() for m in moments)
+    n_params = sum(p.numel() for p in state.model.net.parameters())
+    if state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise RuntimeError(f"bf16 train: {state.step} steps, losses {losses}")
+    if not moments or any(m.dtype != torch.bfloat16 for m in moments) or \
+            state.model.net.dtype != torch.bfloat16:
+        raise RuntimeError("bf16 train: the moments or the compute are not bf16")
+    del state
+    ckpt16 = run_dir / "checkpoints" / "last.ckpt"
+    t1 = time.perf_counter()
+    tr_dir = cli_transcribe.main([
+        f"pretrained_path={ckpt16}", f"dataset.audio_path={tmp / 'window'}",
+        "dataset.audio_ext=wav", f"task.w={W_GUIDANCE}", "overlap_frames=32", "device=cuda",
+        f"trainer.output_dir={out}"])
+    torch.cuda.synchronize()
+    transcribe_s = time.perf_counter() - t1
+    roll = np.load(tr_dir / "000_window.npz")["roll"]
+    if roll.shape != (mc.frames, mc.pitches) or not np.isfinite(roll).all():
+        raise RuntimeError(f"bf16 transcribe gave a roll of {roll.shape}")
+    # a strided process by events, and the same draws through the model in f32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    wav = torch.from_numpy(chord_wav(mc.frames * mc.mel.hop_length / mc.mel.sample_rate,
+                                     mc.mel.sample_rate, SEED + 22))[None].to(dev)
+    x_T = torch.randn(1, mc.frames, mc.pitches, device=dev, generator=gen)
+    noise = torch.randn(TIMED_STEPS, 1, mc.frames, mc.pitches, device=dev, generator=gen)
+    x0, ms = {}, {}
+    for label, dtype_over in (("bf16", None), ("f32", {"dtype": "float32"})):
+        m, _ = load_lightning(str(ckpt16), device=dev, overrides=dtype_over)
+        sampler = DiffusionTask(m, TaskConfig(timesteps=mc.timesteps, sampling_steps=TIMED_STEPS,
+                                              w=W_GUIDANCE))
+        got = []
+        ms[label] = time_ms(lambda: got.append(sampler.sample(x_T, waveform=wav, noise=noise)[0]),
+                            1, 1) / TIMED_STEPS
+        x0[label] = got[-1]
+        del m, sampler
+    traj_rel, traj_abs = rel_err(x0["bf16"], x0["f32"])
+    launches = kernel_launches(kernels)
+    if any(launches.values()):
+        raise RuntimeError(f"bf16 launched a kernel: {launches}")
+    phase("bf16", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, **times,
+          loss_f32=loss["f32"], loss_bf16=loss["bf16"], loss_rel=loss_rel,
+          worst_leaf=worst, worst_leaf_rel=leaf_rel[worst], leaves=len(leaf_rel),
+          worst_leaf_floor=BF16_DIFFERS, block_output_dtypes=block_dtypes,
+          leaves_at_or_over_gate={n: leaf_rel[n] for n in over}, grad_cosine=cos,
+          train_losses=losses, moments_bytes=moment_bytes, moments_bytes_f32=8 * n_params,
+          transcribe_seconds=transcribe_s, reverse_ms_per_step_bf16=ms["bf16"],
+          reverse_ms_per_step_f32=ms["f32"], timed_steps=TIMED_STEPS,
+          trajectory_rel_vs_f32=traj_rel, trajectory_max_abs_vs_f32=traj_abs,
+          launches=launches)
+    if not (loss_rel < BF16_LOSS_GATE and BF16_DIFFERS < leaf_rel[worst] < GATE):
+        raise RuntimeError(f"bf16 against f32: loss rel {loss_rel}, {worst} rel {leaf_rel[worst]}")
+    if block_dtypes != ["torch.bfloat16"]:
+        raise RuntimeError(f"bf16: a block of the bf16 net returned {block_dtypes}")
+    return launches
+
+
+def dp_worker(rank: int, world: int, port: int, spec_path: str) -> int:
+    """One rank of phase dp: a gloo group of `world` ranks on the one card."""
+    import torch.distributed as dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    from diffroll_tpu_torch.cli import distill as cli_distill
+    from diffroll_tpu_torch.cli import test as cli_test
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.ops import _build
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack
+    from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
+    from diffroll_tpu_torch.parallel import setup_mesh
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.tasks import diffusion as task_module
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+    from diffroll_tpu_torch import config as tconfig
+
+    _build.library()
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+    dev = torch.device("cuda")
+    res = {"rank": rank}
+    # K2's batch as the sharded test gives it
+    k2_rows = []
+    inner = task_module.fused_sample
+
+    def recording(*args, **kw):
+        k2_rows.append(int(args[0].shape[0]))
+        return inner(*args, **kw)
+
+    task_module.fused_sample = recording
+
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    state = cli_train.main(spec["train_args"])
+    torch.cuda.synchronize()
+    res["train"] = {"seconds": time.perf_counter() - t0, "step": state.step,
+                    "launches": kernel_launches(kernels), "digest": params_digest(state.model.net)}
+    del state
+
+    # one fixed-draw step on this rank's stripe, K3 + K4 and the modules
+    mesh = setup_mesh(tconfig.compose("spec_roll"), dev)
+    model, _ = load_lightning(spec["ckpt"], device=dev)
+    batch, draws = seeded_step_inputs(model.config, dev)
+    batch = {k: mesh.stripe(v) for k, v in batch.items()}
+    draws = {k: mesh.stripe(v) for k, v in draws.items()}
+    init = {n: p.detach().clone() for n, p in model.net.named_parameters()}
+    grads = {}
+    for fused in (True, False):
+        with torch.no_grad():
+            for n, p in model.net.named_parameters():
+                p.copy_(init[n])
+        task = DiffusionTask(model, TaskConfig(timesteps=model.config.timesteps,
+                                               fused_train=fused), mesh=mesh)
+        st = TrainState.create(model, 0.0)
+        step = make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws), mesh)
+        step(st, batch, None)
+        grads["fused" if fused else "modules"] = {
+            n: p.grad.detach().cpu() for n, p in model.net.named_parameters()}
+        if fused:
+            res["step_ms"] = time_ms(lambda: step(st, batch, None), 3, 1)
+    if rank == 0:
+        torch.save(grads, pathlib.Path(spec["out"]) / "dp_grads.pt")
+    del model, grads
+
+    reset_launches(*kernels)
+    k2_rows.clear()
+    t0 = time.perf_counter()
+    res["test"] = {"metrics": cli_test.main(spec["test_args"])}
+    torch.cuda.synchronize()
+    res["test"].update(seconds=time.perf_counter() - t0, launches=kernel_launches(kernels),
+                       k2_rows=list(k2_rows))
+
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    summary = cli_distill.main(spec["distill_args"])
+    torch.cuda.synchronize()
+    res["distill"] = {"seconds": time.perf_counter() - t0, "stages": summary["stages"],
+                      "launches": kernel_launches(kernels)}
+    (pathlib.Path(spec["out"]) / f"dp_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_worker(spec_path: str) -> int:
+    """Phase dp's last part: one process of a `torchrun --nproc_per_node=1`
+    environment; `train` initialises the NCCL group itself."""
+    import torch.distributed as dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.ops import _build
+    from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+
+    _build.library()
+    reset_launches(fwd_saves, bwd)
+    t0 = time.perf_counter()
+    state = cli_train.main(spec["nccl_args"])
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0, "step": state.step,
+           "backend": str(dist.get_backend()), "world": dist.get_world_size(),
+           "launches": kernel_launches((fwd_saves, bwd))}
+    (pathlib.Path(spec["out"]) / "nccl.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(cmds, envs, what: str) -> None:
+    """Start every command at once, wait for all with a timeout, kill all on
+    a failure or the timeout."""
+    procs = [subprocess.Popen(c, env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c, e in zip(cmds, envs)]
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise RuntimeError(f"{what}: the processes did not finish in {DP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{what}: process {i} exited {p.returncode}:\n{log[-3000:]}")
+
+
+def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
+                 kernels) -> dict:
+    """Phase dp: two ranks in a gloo group share the one card (NCCL refuses two
+    ranks on one GPU), each a process of its own: `train` at global B=16 with
+    K3 + K4 for 3 steps on phase 5's corpus (each rank its stripe of 8), one
+    fixed-draw step against the single-process step at B=16, `test` on the
+    trained checkpoint (K2 once a rank at B=4) against the single-process
+    test, and one distill stage. Then one process at world size 1 over NCCL.
+    Returns the launch counts of dp_train, dp_test and dp_distill (rank 0's;
+    both ranks' are checked)."""
+    from diffroll_tpu_torch.cli import test as cli_test
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = tmp / "dp"
+    out.mkdir()
+    common = [f"dataset.root={tmp / 'data'}", "device=cuda", "audio_format=wav",
+              f"dataloader.train_batch_size={TRAIN_BATCH}"]
+    spec = {
+        "out": str(out), "ckpt": str(ckpt),
+        "train_args": ["spec_roll", "task.fused_train=true", "trainer.max_epochs=1",
+                       "trainer.check_val_every_n_epoch=1", "trainer.log_every_n_steps=1",
+                       f"trainer.output_dir={out / 'train'}", *common],
+        "test_args": [f"pretrained_path={last_ckpt}", f"trainer.output_dir={out / 'test'}",
+                      *common],
+        "distill_args": [f"pretrained_path={last_ckpt}", f"distill.start_steps={DISTILL_STAGES[0]}",
+                         "distill.stages=1", f"distill.steps_per_stage={DISTILL_STEPS}",
+                         "task.fused_train=true", f"trainer.output_dir={out / 'distill'}",
+                         *common],
+        "nccl_args": ["spec_roll", "task.fused_train=true", "trainer.max_epochs=1",
+                      "trainer.check_val_every_n_epoch=1", f"trainer.output_dir={out / 'nccl'}",
+                      f"dataset.root={tmp / 'train_only'}", "device=cuda",
+                      f"dataloader.train_batch_size={TRAIN_BATCH}"]}
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    script = str(pathlib.Path(__file__).resolve())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(pathlib.Path(script).parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    port = free_port()
+    run_workers([[sys.executable, script, "--dp-worker", str(r), "2", str(port), str(spec_path)]
+                 for r in range(2)], [env, env], "dp (2 gloo ranks)")
+    ranks = [json.loads((out / f"dp_rank{r}.json").read_text()) for r in range(2)]
+    r0, r1 = ranks
+
+    # train: K3 and K4 once a step on each rank, the same bits on both
+    for r in ranks:
+        if r["train"]["step"] != TRAIN_STEPS or r["train"]["launches"]["fwd_saves"] != \
+                TRAIN_STEPS or r["train"]["launches"]["bwd"] != TRAIN_STEPS:
+            raise RuntimeError(f"dp train on rank {r['rank']}: {r['train']}")
+    if r0["train"]["digest"] != r1["train"]["digest"]:
+        raise RuntimeError("dp train: the two ranks ended with different parameters")
+    runs = list((out / "train").glob("*/*/train-*"))
+    if len(runs) != 1 or not (runs[0] / "checkpoints" / "last.ckpt").exists():
+        raise RuntimeError(f"dp train wrote {runs}: rank 0 alone must write")
+
+    # the fixed-draw step against one process at B=16
+    model, _ = load_lightning(str(ckpt), device=dev)
+    batch, draws = seeded_step_inputs(model.config, dev)
+    dp_grads = torch.load(out / "dp_grads.pt")
+    init = {n: p.detach().clone() for n, p in model.net.named_parameters()}
+    step_rel = {}
+    for route, fused, gate in (("fused", True, DP_FUSED_GATE), ("modules", False, DP_MODULES_GATE)):
+        with torch.no_grad():
+            for n, p in model.net.named_parameters():
+                p.copy_(init[n])
+        task = DiffusionTask(model, TaskConfig(timesteps=model.config.timesteps,
+                                               fused_train=fused))
+        st = TrainState.create(model, 0.0)
+        make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws))(st, batch, None)
+        want = {n: p.grad.detach().cpu() for n, p in model.net.named_parameters()}
+        name, rel, _ = worst_leaf(dp_grads[route], want)
+        step_rel[route] = {"worst_leaf": name, "rel": rel, "gate": gate}
+        if not rel < gate:
+            raise RuntimeError(f"dp step ({route}) against one process: {name} rel {rel}")
+    del model, dp_grads
+
+    # test: n_clips, K2 once a rank at B=4, the metrics of one process
+    single = cli_test.main([f"pretrained_path={last_ckpt}", f"trainer.output_dir={out / 'single'}",
+                            f"dataset.root={tmp / 'data'}", "device=cuda", "audio_format=wav"])
+    # the rolls rank 0 gathered and reassembled, against the single process's
+    # (every row's x_T and noise are the same draws; K2 runs at B=4, not 8)
+    (dp_npz,) = (out / "test").glob("*/*/test-*/batch0_rolls.npz")
+    (one_npz,) = (out / "single").glob("*/*/test-*/batch0_rolls.npz")
+    dp_rolls, one_rolls = (torch.from_numpy(np.load(f)["pred"]) for f in (dp_npz, one_npz))
+    if dp_rolls.shape != one_rolls.shape or dp_rolls.shape[0] != SERVE_BATCH:
+        raise RuntimeError(f"dp test rolls {tuple(dp_rolls.shape)}, one process "
+                           f"{tuple(one_rolls.shape)}")
+    rolls_rel, rolls_abs = rel_err(dp_rolls, one_rolls)
+    rows_rel = [rel_err(dp_rolls[i], one_rolls[i])[0] for i in range(SERVE_BATCH)]
+    # the rows differ from one another, so a misplaced stripe cannot pass
+    rows_distinct = len({r.numpy().tobytes() for r in one_rolls})
+    if not rolls_rel < GATE or rows_distinct != SERVE_BATCH:
+        raise RuntimeError(f"dp test rolls against one process: rel {rolls_rel} (rows {rows_rel}), "
+                           f"{rows_distinct} distinct rows of {SERVE_BATCH}")
+    metric_diff = {}
+    for r in ranks:
+        got = r["test"]["metrics"]
+        if got["n_clips"] != TEST_RECORDINGS or r["test"]["launches"]["fused_sample"] != 1 or \
+                r["test"]["k2_rows"] != [SERVE_BATCH // 2]:
+            raise RuntimeError(f"dp test on rank {r['rank']}: {r['test']}")
+        metric_diff = {k: abs(got[k] - single[k]) for k in single}
+        if max(metric_diff.values()) > DP_METRICS_TOL or sorted(got) != sorted(single):
+            raise RuntimeError(f"dp test metrics {got} against one process {single}")
+    for r in ranks:
+        d = r["distill"]
+        if d["stages"] != [DISTILL_STAGES[0]] or d["launches"]["gated_stack"] != \
+                2 * DISTILL_STEPS or d["launches"]["fwd_saves"] != DISTILL_STEPS:
+            raise RuntimeError(f"dp distill on rank {r['rank']}: {d}")
+    if len(list((out / "distill").glob("*/*/distill-*/distilled_*steps"))) != 1:
+        raise RuntimeError("dp distill: rank 0 alone must write the stage checkpoint")
+
+    # one process at world size 1 over NCCL, as torchrun --nproc_per_node=1 sets it up
+    nccl_env = {**env, "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    run_workers([[sys.executable, script, "--nccl-worker", str(spec_path)]], [nccl_env],
+                "dp (NCCL, world size 1)")
+    nccl = json.loads((out / "nccl.json").read_text())
+    if nccl["backend"] != "nccl" or nccl["world"] != 1 or nccl["step"] != TRAIN_STEPS or \
+            nccl["launches"] != {"fwd_saves": TRAIN_STEPS, "bwd": TRAIN_STEPS}:
+        raise RuntimeError(f"dp over NCCL: {nccl}")
+    phase("dp", seconds=time.perf_counter() - t0, ranks=2, backend="gloo", global_batch=TRAIN_BATCH,
+          train={k: r0["train"][k] for k in ("seconds", "step", "launches")},
+          same_bits_on_both_ranks=True,
+          step_ms={"2 ranks sharing one card: not a scaling figure": [r["step_ms"] for r in ranks]},
+          step_vs_one_process=step_rel,
+          test={"metrics": {k: r0["test"]["metrics"][k] for k in ("n_clips", "note_f1", "frame_f1")},
+                "max_metric_diff_vs_one_process": max(metric_diff.values()),
+                "rolls_vs_one_process": {"rel": rolls_rel, "max_abs": rolls_abs,
+                                         "rows_rel": rows_rel, "gate": GATE,
+                                         "rows_distinct": rows_distinct,
+                                         "same_bits": bool(torch.equal(dp_rolls, one_rolls))},
+                "tolerance": DP_METRICS_TOL, "k2_rows_per_rank": r0["test"]["k2_rows"],
+                "seconds": r0["test"]["seconds"], "launches": r0["test"]["launches"]},
+          distill={k: r0["distill"][k] for k in ("seconds", "stages", "launches")},
+          nccl_world1=nccl)
+    full = lambda d: {fn.__name__: d.get(fn.__name__, 0) for fn in kernels}  # noqa: E731
+    return {"dp_train": full(r0["train"]["launches"]), "dp_test": full(r0["test"]["launches"]),
+            "dp_distill": full(r0["distill"]["launches"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1091,7 +1576,9 @@ def main() -> int:
         path_launches["baseline"] = run_baseline_phase(tmp / "data", tmp / "baseline_out",
                                                        all_kernels)
         path_launches.update(run_family_phases(tmp, sr, all_kernels))
-    run_variants_hold(dev)
+        run_variants_hold(dev)
+        path_launches["bf16"] = run_bf16_phase(tmp, ckpt, all_kernels)
+        path_launches.update(run_dp_phase(tmp, ckpt, last_ckpt, all_kernels))
 
     net = model.net
     dil = mc.dilations()
@@ -1467,4 +1954,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.exit(nccl_worker(sys.argv[2]))
     sys.exit(main())

@@ -26,6 +26,9 @@ Commands:
               with the trajectory and as MIDI
 
 Every command takes `config=<file>.yaml` (its keys layered under the CLI's).
+Under `torchrun --nproc_per_node=N -m diffroll_tpu_torch <command> ...`
+train, distill, test, sweep and transcribe run over N ranks (the data axis,
+`trainer.data_axis`); the group they start is closed when the command ends.
 """
 
 from __future__ import annotations
@@ -42,7 +45,12 @@ def _dispatch(argv) -> int:
     if not argv or argv[0] in ("-h", "--help") or argv[0] not in commands:
         print(__doc__)
         return 0 if argv and argv[0] in ("-h", "--help") else 2
-    commands[argv[0]](list(argv[1:]))
+    from .parallel.mesh import close_group
+
+    try:
+        commands[argv[0]](list(argv[1:]))
+    finally:
+        close_group()
     return 0
 
 

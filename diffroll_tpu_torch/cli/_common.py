@@ -1,5 +1,5 @@
 """Shared CLI plumbing (counterpart of `diffroll_tpu/cli/_common.py`):
-dataset / loader / model construction, run dirs, checkpoint
+dataset / loader / model construction, the data axis, run dirs, checkpoint
 load-with-override."""
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from ..data.amt import MAESTRO, MAPS
 from ..data.custom import Custom
 from ..data.pipeline import DataLoader
 from ..models.base import DiffRollModel
+from ..parallel.mesh import DataMesh
+from ..parallel.mesh import setup_mesh as _setup_mesh
 from ..tasks.baseline import BaselineTask
 from ..tasks.diffusion import DiffusionTask, TaskConfig
 from ..train.state import TrainState
@@ -30,6 +32,19 @@ def resolve_device(cfg: ExperimentConfig) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device=cuda but no CUDA device is available; pass device=cpu")
     return device
+
+
+def setup_mesh(cfg: ExperimentConfig) -> Tuple[Optional[DataMesh], torch.device]:
+    """The data axis (parallel/mesh.py; None outside a launched group) and
+    this process's device: the rank's card under a mesh on CUDA."""
+    device = resolve_device(cfg)
+    mesh = _setup_mesh(cfg, device)
+    return mesh, (device if mesh is None else mesh.device)
+
+
+def is_main(mesh: Optional[DataMesh]) -> bool:
+    """Whether this process writes files: the only one, or rank 0."""
+    return mesh is None or mesh.is_main
 
 
 def build_dataset(ds: DatasetConfig, split: str):
@@ -59,16 +74,23 @@ def build_dataset(ds: DatasetConfig, split: str):
     raise KeyError(f"unknown dataset {ds.name!r}")
 
 
-def build_loader(cfg: ExperimentConfig, dataset, split: str) -> DataLoader:
+def build_loader(cfg: ExperimentConfig, dataset, split: str,
+                 mesh: Optional[DataMesh] = None) -> DataLoader:
+    """The split's loader; with `mesh` each rank reads its stripe of every
+    global batch (`process_index` = rank, `process_count` = size), and the
+    train split drops a short last batch, whose stripes could not all
+    step."""
     dl = cfg.dataloader
     bs = {"train": dl.train_batch_size, "validation": dl.val_batch_size,
           "test": dl.test_batch_size}[split]
     return DataLoader(
         dataset, bs,
         shuffle=dl.shuffle and split == "train",
-        drop_last=dl.drop_last and split == "train",
+        drop_last=(dl.drop_last or mesh is not None) and split == "train",
         num_workers=dl.num_workers, prefetch=dl.prefetch,
         seed=cfg.trainer.seed,
+        process_index=0 if mesh is None else mesh.rank,
+        process_count=1 if mesh is None else mesh.size,
     )
 
 
@@ -100,13 +122,21 @@ def make_run_dir(cfg: ExperimentConfig, kind: str) -> pathlib.Path:
     return run_dir
 
 
-def setup_model_task(cfg: ExperimentConfig, device) -> Tuple[DiffRollModel, Any]:
-    """The model on `device` and its task: a `DiffusionTask`, or a
-    `BaselineTask` for task_type=baseline."""
+def setup_model_task(cfg: ExperimentConfig, device,
+                     mesh: Optional[DataMesh] = None) -> Tuple[DiffRollModel, Any]:
+    """The model on `device` and its task: a `DiffusionTask` (drawing the
+    global batch's draws under `mesh`), or a `BaselineTask` for
+    task_type=baseline."""
     model = DiffRollModel(cfg.model).to(device)
     if cfg.task_type == "baseline":
-        return model, BaselineTask(model, cfg.baseline)
-    return model, DiffusionTask(model, cfg.task)
+        return model, BaselineTask(model, cfg.baseline, mesh=mesh)
+    return model, DiffusionTask(model, cfg.task, mesh=mesh)
+
+
+def new_train_state(cfg: ExperimentConfig, model: DiffRollModel) -> TrainState:
+    """A fresh optimizer at the task's lr (`trainer.adam_moments_dtype`)."""
+    return TrainState.create(model, task_lr(cfg), cfg.trainer.adam_moments_dtype,
+                             seed=cfg.trainer.seed)
 
 
 def config_record(cfg: ExperimentConfig) -> Dict[str, Any]:
@@ -118,6 +148,8 @@ def load_pretrained(
     cfg: ExperimentConfig,
     prefer_ema: bool = True,
     overrides: Optional[Dict[str, Any]] = None,
+    device: Optional[torch.device] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> Tuple[ExperimentConfig, DiffRollModel, Any, TrainState]:
     """Restore a checkpoint with the reference's "reload weights, override
     hparams" semantic. The stored model config wins for architecture and the
@@ -131,12 +163,14 @@ def load_pretrained(
     A checkpoint the port wrote also brings back its `task_type`.
     In both, `timesteps` follows the model's embedding table. EMA weights
     are preferred when `prefer_ema` (evaluation); fine-tuning continues from
-    the raw weights.
+    the raw weights. With `trainer.adam_moments_dtype` set the optimizer
+    starts fresh (the stored moments are another dtype's), as in the JAX
+    package. `device` defaults to `cfg.device`'s; `mesh` goes to the task.
     """
     if not cfg.pretrained_path or pathlib.Path(cfg.pretrained_path).suffix != ".ckpt":
         raise SystemExit("pretrained_path=<file>.ckpt (a Lightning-style checkpoint) "
                          "is required")
-    device = resolve_device(cfg)
+    device = resolve_device(cfg) if device is None else device
     over = overrides or {}
     ckpt = read_ckpt(cfg.pretrained_path)
     hparams = ckpt["hyper_parameters"]
@@ -156,15 +190,16 @@ def load_pretrained(
         model_name=port["model_name"] if port else cfg.model_name,
         task_type=port.get("task_type", cfg.task_type) if port else cfg.task_type)
 
-    model, task = setup_model_task(cfg, device)
+    model, task = setup_model_task(cfg, device, mesh)
     weights = ckpt.get("ema") if prefer_ema and ckpt.get("ema") is not None \
         else weights_only(ckpt["state_dict"])
     # strict: a layout or architecture mismatch raises here, naming the keys
     model.net.load_state_dict(weights)
-    state = TrainState.create(model, task_lr(cfg))
+    state = new_train_state(cfg, model)
     if ckpt.get("optimizer_state") is not None:
-        state.optimizer.load_state_dict(ckpt["optimizer_state"])
-        for group in state.optimizer.param_groups:
-            group["lr"] = task_lr(cfg)
+        if not cfg.trainer.adam_moments_dtype:
+            state.optimizer.load_state_dict(ckpt["optimizer_state"])
+            for group in state.optimizer.param_groups:
+                group["lr"] = task_lr(cfg)
         state.step = int(ckpt.get("global_step", 0))
     return cfg, model, task, state

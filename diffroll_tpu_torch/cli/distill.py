@@ -19,6 +19,10 @@ sampler (`ddim_x0`, n steps, w=0), which `test` and `serve` read:
     python -m diffroll_tpu_torch test \
         pretrained_path=<run dir>/distilled_9steps/checkpoints/last.ckpt \
         task.sampling_type=ddim_x0 task.sampling_steps=9 task.w=0
+
+Under torchrun the student's step is data-parallel over the ranks (each its
+stripe of every global batch, the teacher replicated), and rank 0 alone
+logs and writes the stage checkpoints.
 """
 
 from __future__ import annotations
@@ -35,13 +39,16 @@ from . import _common
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     cfg, _, overrides = from_argv(sys.argv[1:] if argv is None else argv, "spec_roll")
-    cfg, model, _, _ = _common.load_pretrained(cfg, prefer_ema=True, overrides=overrides)
+    mesh, device = _common.setup_mesh(cfg)
+    main_rank = _common.is_main(mesh)
+    cfg, model, _, _ = _common.load_pretrained(cfg, prefer_ema=True, overrides=overrides,
+                                               device=device)
     if cfg.task_type != "diffusion":
         raise SystemExit(f"distill needs a diffusion checkpoint; {cfg.pretrained_path} "
                          f"holds a {cfg.task_type!r} model")
 
     train_ds = _common.build_dataset(cfg.dataset, "train")
-    loader = _common.build_loader(cfg, train_ds, "train")
+    loader = _common.build_loader(cfg, train_ds, "train", mesh)
 
     def batches():
         while True:
@@ -57,10 +64,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                     f"{cfg.dataloader.train_batch_size}, drop_last) - shrink "
                     "dataloader.train_batch_size or add data")
 
-    run_dir = _common.make_run_dir(cfg, "distill")
-    print(f"run dir: {run_dir}", file=sys.stderr)
-    students = progressive_distill(model, cfg.task, batches(), cfg.distill,
-                                   log=lambda msg: print(msg, file=sys.stderr))
+    run_dir = _common.make_run_dir(cfg, "distill") if main_rank else None
+    if main_rank:
+        print(f"run dir: {run_dir}", file=sys.stderr)
+    students = progressive_distill(
+        model, cfg.task, batches(), cfg.distill,
+        log=(lambda msg: print(msg, file=sys.stderr)) if main_rank else None, mesh=mesh)
+    summary = {"run_dir": str(run_dir), "stages": sorted(students, reverse=True),
+               "eval_with": "task.sampling_type=ddim_x0 task.sampling_steps=<n> task.w=0"}
+    if not main_rank:
+        return summary
 
     for n, student in students.items():
         # a distilled model samples unguided (guidance is folded in) on the
@@ -69,8 +82,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             sampling_type="ddim_x0", sampling_steps=n, w=0.0))
         Checkpointer(run_dir / f"distilled_{n}steps" / "checkpoints").save_last(
             TrainState.create(student, cfg.distill.lr), config=_common.config_record(stage_cfg))
-    summary = {"run_dir": str(run_dir), "stages": sorted(students, reverse=True),
-               "eval_with": "task.sampling_type=ddim_x0 task.sampling_steps=<n> task.w=0"}
     print(json.dumps(summary))
     return summary
 

@@ -6,6 +6,7 @@ Two modes:
     w x frame-threshold grid over one checkpoint -> `sweep.json` (+ figure);
   * training-side (`p_grid=`): one `train` run per spec_dropout value, each
     evaluated on the test split after `fit` -> `p_sweep.json` (+ figure).
+Both run over the data axis under torchrun; rank 0 alone writes.
 
     python -m diffroll_tpu_torch sweep pretrained_path=<file.ckpt> dataset.root=... \
         w_grid=[0,0.1,0.5,1,1.5,4] threshold_grid=[0.5]
@@ -64,18 +65,24 @@ def run_p_sweep(p_grid: List[float], rest: List[str]):
     base = pathlib.Path(out_tok[-1].split("=", 1)[1]) if out_tok else pathlib.Path("outputs")
     sweep_dir = base / "p_sweep"
     rest = [t for t in rest if not t.startswith("trainer.output_dir=")]
+    # the data axis every point's `train` joins (rank 0 alone writes and reads)
+    main_rank = _common.is_main(_common.setup_mesh(from_argv(rest, "spec_roll")[0])[0])
 
     rows = []
     for p in p_grid:
         out = sweep_dir / f"p{p:g}"
         print(f"=== p-sweep point spec_dropout={p:g} -> {out}", file=sys.stderr)
         train_cli.main([*rest, f"model.spec_dropout={p}", f"trainer.output_dir={out}"])
+        if not main_rank:
+            continue
         metric_files = sorted(out.rglob("test_metrics.json"))
         if not metric_files:
             raise FileNotFoundError(f"training at p={p} produced no test_metrics.json "
                                     f"under {out} (no test split?)")
         rows.append({"spec_dropout": p, **json.loads(metric_files[-1].read_text())})
         print(json.dumps(rows[-1]), file=sys.stderr)
+    if not main_rank:
+        return rows
 
     (sweep_dir / "p_sweep.json").write_text(json.dumps(rows, indent=2))
     ps = [r["spec_dropout"] for r in rows]
@@ -106,19 +113,25 @@ def main(argv: Optional[List[str]] = None):
         return run_p_sweep(p_grid, rest)
 
     cfg, _, overrides = from_argv(rest, "test")
-    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides)
-    run_dir = _common.make_run_dir(cfg, "sweep")
+    mesh, device = _common.setup_mesh(cfg)
+    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides, device=device,
+                                                  mesh=mesh)
+    main_rank = _common.is_main(mesh)
+    run_dir = _common.make_run_dir(cfg, "sweep") if main_rank else None
 
     rows = []
     for w in w_grid:
         # one sampling pass per w; every threshold is scored from its rolls
         c = cfg.replace(task=cfg.task.replace(w=w))
         # the baseline's one-shot walk has no guidance: its task stays as it is
-        t = task if c.task_type == "baseline" else type(task)(model, c.task)
+        t = task if c.task_type == "baseline" else type(task)(model, c.task, mesh=mesh)
         by_thr = run_test(c, model, t, thresholds=thr_grid)
         for thr in thr_grid:
             rows.append({"w": w, "frame_threshold": thr, **by_thr[thr]})
-            print(json.dumps(rows[-1]), file=sys.stderr)
+            if main_rank:
+                print(json.dumps(rows[-1]), file=sys.stderr)
+    if not main_rank:
+        return rows
 
     (run_dir / "sweep.json").write_text(json.dumps(rows, indent=2))
     _save_figure(run_dir / "sweep.png", "guidance w", "note F1 (%)",

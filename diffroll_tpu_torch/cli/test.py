@@ -9,6 +9,10 @@ split enumerates consecutive windows covering each recording; the windows
 are reassembled into one roll per recording (cross-faded where they
 overlap) and scored whole. Writes `test_metrics.json`, and batch 0's rolls,
 MIDI and audio, into outputs/<date>/<time>/test-<run name>.
+
+Over the data axis (`torchrun --nproc_per_node=N ... test ...`) each rank
+samples its stripe of every test batch, rank 0 gathers the rolls, scores
+them and alone writes; every rank returns the same metrics.
 """
 
 from __future__ import annotations
@@ -49,9 +53,12 @@ def run_test(cfg, model, task, artifacts_dir=None,
     eval-only, so sampling runs once.
 
     x_T and every batch's per-step draws come from one `torch.Generator`
-    on the model's device, seeded by `trainer.seed`. (The JAX package
-    shards eval batches over a device mesh here; more than one device is
-    ROADMAP item 23.)
+    on the model's device, seeded by `trainer.seed`. Over the task's data
+    axis (`task.mesh`) every rank loads each whole batch and draws its x_T
+    and noise, samples its rows rank::size (`task.sample`), and rank 0
+    reassembles and scores
+    the gathered rolls; the metrics are rank 0's, broadcast, so n_clips and
+    the scores are the single-process run's over the same split.
     """
     test_ds = _common.build_dataset(cfg.dataset, "test")
     loader = _common.build_loader(cfg, test_ds, "test")
@@ -59,6 +66,7 @@ def run_test(cfg, model, task, artifacts_dir=None,
     if single:
         thresholds = [_common.task_threshold(cfg)]
     device = model.device
+    mesh = task.mesh
     generator = torch.Generator(device=device).manual_seed(cfg.trainer.seed)
 
     per_thr: Dict[float, List[Dict[str, float]]] = {t: [] for t in thresholds}
@@ -99,10 +107,15 @@ def run_test(cfg, model, task, artifacts_dir=None,
             label_full = np.concatenate([ent["label"][s] for s in starts])
         score(pred_full[None, :n], label_full[None, :n], 1)
 
+    batches = 0
     for batch in loader:
+        batches += 1
         audio = torch.from_numpy(batch["audio"]).to(device)
         x_T = torch.randn(batch["frame"].shape, generator=generator, device=device)
-        pred = task.sample(x_T, waveform=audio, generator=generator)[0].cpu().numpy()
+        pred = task.sample(x_T, waveform=audio, generator=generator)[0]
+        if pred is None:  # not rank 0 of the data axis: the rolls went there
+            continue
+        pred = pred.cpu().numpy()
         if artifacts_dir is not None and not exported:
             _export_batch_artifacts(artifacts_dir, cfg, pred, batch)
             exported = True
@@ -125,11 +138,13 @@ def run_test(cfg, model, task, artifacts_dir=None,
         else:
             score(pred, batch["frame"], int(pred.shape[0]))
 
+    if batches == 0:
+        raise FileNotFoundError("test split resolved to zero batches")
+    if mesh is not None and not mesh.is_main:
+        return mesh.broadcast_object(None)
+
     for ci in sorted(pending):  # a recording whose windows never completed
         finalize(pending.pop(ci))
-
-    if n_clips == 0:
-        raise FileNotFoundError("test split resolved to zero batches")
 
     def reduce(all_metrics):
         weights = np.array([m.pop("_n") for m in all_metrics], np.float64)
@@ -142,18 +157,21 @@ def run_test(cfg, model, task, artifacts_dir=None,
         return out
 
     results = {t: reduce(ms) for t, ms in per_thr.items()}
-    return results[thresholds[0]] if single else results
+    out = results[thresholds[0]] if single else results
+    return out if mesh is None else mesh.broadcast_object(out)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     cfg, _, overrides = from_argv(sys.argv[1:] if argv is None else argv, "test")
-    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides)
+    mesh, device = _common.setup_mesh(cfg)
+    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides, device=device,
+                                                  mesh=mesh)
 
     # this entry keeps the test preset's sampler, but says so when a
     # checkpoint the port trained recorded another one (w may differ:
     # only the sampler's identity and grid are compared)
     stored_task = _common.stored_task_config(cfg.pretrained_path)
-    if stored_task is not None and cfg.task_type != "baseline":
+    if stored_task is not None and cfg.task_type != "baseline" and _common.is_main(mesh):
         eff = (cfg.task.sampling_type, cfg.task.sampling_steps)
         rec = (stored_task.sampling_type, stored_task.sampling_steps)
         pinned = {"task.sampling_type", "task.sampling_steps"} & set(overrides)
@@ -162,10 +180,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                   f"(a distilled student must run its own grid) - pass "
                   f"task.sampling_type= / task.sampling_steps= to change", file=sys.stderr)
 
-    run_dir = _common.make_run_dir(cfg, "test")
+    run_dir = _common.make_run_dir(cfg, "test") if _common.is_main(mesh) else None
     metrics = run_test(cfg, model, task, artifacts_dir=run_dir)
-    (run_dir / "test_metrics.json").write_text(json.dumps(metrics, indent=2))
-    print(json.dumps(metrics))
+    if run_dir is not None:
+        (run_dir / "test_metrics.json").write_text(json.dumps(metrics, indent=2))
+        print(json.dumps(metrics))
     return metrics
 
 

@@ -21,6 +21,18 @@ one stderr line says so. After `fit` the test split is evaluated as `test` would
 evaluate the checkpoint (on the EMA weights when `trainer.ema_decay` is set)
 and `test_metrics.json` is written; a layout without a test split skips it
 with one stderr line.
+
+`model.dtype=bfloat16` computes the 1-D net's convs in bf16 on f32 weights,
+and `trainer.adam_moments_dtype=bfloat16` stores Adam's moments in bf16
+(a fresh optimizer when starting from `pretrained_path`). Over the data
+axis, one process per GPU:
+
+    torchrun --nproc_per_node=4 -m diffroll_tpu_torch train spec_roll \
+        dataset.root=/data trainer.data_axis=4
+
+each rank steps on its stripe of every global batch of
+`dataloader.train_batch_size` with the gradients averaged, and only rank 0
+writes the logs, figures, checkpoints and the test metrics.
 """
 
 from __future__ import annotations
@@ -79,15 +91,17 @@ def make_val_hook(task, logger: MetricLogger):
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg, rest, overrides = from_argv(sys.argv[1:] if argv is None else argv, "spec_roll")
     dual = cfg.dual or "dual" in rest or cfg.dataset2 is not None
-    device = _common.resolve_device(cfg)
+    mesh, device = _common.setup_mesh(cfg)
+    main_rank = _common.is_main(mesh)
 
     if cfg.pretrained_path:
         cfg, model, task, state = _common.load_pretrained(cfg, prefer_ema=False,
-                                                           overrides=overrides)
+                                                           overrides=overrides, device=device,
+                                                           mesh=mesh)
     else:
         torch.manual_seed(cfg.trainer.seed)  # the weight init
-        model, task = _common.setup_model_task(cfg, device)
-        state = TrainState.create(model, _common.task_lr(cfg))
+        model, task = _common.setup_model_task(cfg, device, mesh)
+        state = _common.new_train_state(cfg, model)
 
     if dual and cfg.dataset2 is None:
         # the reference's defaults: MAPS + MAESTRO
@@ -95,44 +109,48 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
     if dual:
         cfg = cfg.replace(task=cfg.task.replace(
             loss_keys=("diffusion_loss", "unconditional_diffusion_loss")))
-        task = task.__class__(model, cfg.task)
+        task = task.__class__(model, cfg.task, mesh=mesh)
 
     train_ds = _common.build_dataset(cfg.dataset, "train")
     if dual:
         train_ds = DoubleDataset(train_ds, _common.build_dataset(cfg.dataset2, "train"))
     try:
         val_ds = _common.build_dataset(cfg.dataset, "validation")
-        val_loader = _common.build_loader(cfg, val_ds, "validation")
+        val_loader = _common.build_loader(cfg, val_ds, "validation", mesh)
     except FileNotFoundError:
         val_loader = None  # no validation split in this layout
-    train_loader = _common.build_loader(cfg, train_ds, "train")
+    train_loader = _common.build_loader(cfg, train_ds, "train", mesh)
 
-    run_dir = _common.make_run_dir(cfg, "train")
-    logger = MetricLogger(run_dir)
-    logger.log_config(asdict_flat(cfg))
-    ckpt = Checkpointer(run_dir / "checkpoints", max_to_keep=cfg.trainer.save_top_k)
-
-    print(f"run dir: {run_dir}", file=sys.stderr)
+    # rank 0 alone writes: the others keep no logger, checkpointer or hook
+    logger = ckpt = run_dir = None
+    if main_rank:
+        run_dir = _common.make_run_dir(cfg, "train")
+        logger = MetricLogger(run_dir)
+        logger.log_config(asdict_flat(cfg))
+        ckpt = Checkpointer(run_dir / "checkpoints", max_to_keep=cfg.trainer.save_top_k)
+        print(f"run dir: {run_dir}", file=sys.stderr)
     state = fit(task, state, train_loader, trainer=cfg.trainer, val_loader=val_loader,
-                checkpointer=ckpt, logger=logger,
-                config_record=_common.config_record(cfg), val_hook=make_val_hook(task, logger))
+                checkpointer=ckpt, logger=logger, config_record=_common.config_record(cfg),
+                val_hook=make_val_hook(task, logger) if main_rank else None, mesh=mesh)
 
     # the test split, on what `test pretrained_path=<last.ckpt>` loads: the
     # EMA weights when the run kept them (the returned state keeps the raw ones)
     eval_model, eval_task = model, task
-    ema = ckpt.load_extra("ema", "last") if cfg.trainer.ema_decay else None
-    if ema is not None:
-        eval_model, eval_task = _common.setup_model_task(cfg, device)
-        eval_model.net.load_state_dict(ema)
+    if state.ema is not None:
+        eval_model, eval_task = _common.setup_model_task(cfg, device, mesh)
+        eval_model.net.load_state_dict(state.ema)
     try:
         metrics = run_test(cfg, eval_model, eval_task)
-        (run_dir / "test_metrics.json").write_text(json.dumps(metrics, indent=2))
-        print(json.dumps(metrics))
+        if main_rank:
+            (run_dir / "test_metrics.json").write_text(json.dumps(metrics, indent=2))
+            print(json.dumps(metrics))
     except FileNotFoundError as e:
-        print(f"skipping test split: {e}", file=sys.stderr)
-    logger.close()
-    print(json.dumps({"run_dir": str(run_dir), "steps": state.step,
-                      "last": str(ckpt.resolve("last"))}))
+        if main_rank:
+            print(f"skipping test split: {e}", file=sys.stderr)
+    if main_rank:
+        logger.close()
+        print(json.dumps({"run_dir": str(run_dir), "steps": state.step,
+                          "last": str(ckpt.resolve("last"))}))
     return state
 
 

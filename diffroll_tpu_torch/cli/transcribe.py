@@ -8,7 +8,9 @@
 Writes `<name>.npz` (the roll) and `<name>.mid` per file and a
 `manifest.json` into outputs/<date>/<time>/transcribe-<run name>.
 Architecture and recorded task knobs come from the checkpoint; explicit
-`model.*` / `task.*` keys on the command line win.
+`model.*` / `task.*` keys on the command line win. Under torchrun each
+file's windows are striped over the ranks, and rank 0 stitches the rolls
+and alone writes.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..config import from_argv
 from ..io.wav import read_wav, resample
 from ..tasks.diffusion import DiffusionTask
 from ..tasks.transcribe import transcribe_long
-from ._common import make_run_dir, resolve_device
+from ._common import is_main, make_run_dir, setup_mesh
 from .sample import export_clip
 
 
@@ -43,7 +45,8 @@ def main(argv: Optional[List[str]] = None) -> pathlib.Path:
         raise SystemExit(f"unexpected arguments: {positional}")
     if not cfg.pretrained_path or pathlib.Path(cfg.pretrained_path).suffix != ".ckpt":
         raise SystemExit("pretrained_path=<file>.ckpt (a Lightning checkpoint) is required")
-    device = resolve_device(cfg)
+    mesh, device = setup_mesh(cfg)
+    main_rank = is_main(mesh)
 
     model_over = {k[len("model."):]: v for k, v in overrides.items()
                   if k.startswith("model.")}
@@ -54,8 +57,8 @@ def main(argv: Optional[List[str]] = None) -> pathlib.Path:
     task_updates = {k: v for k, v in task_updates.items() if f"task.{k}" not in overrides}
     task_cfg = cfg.task.replace(**task_updates).replace(timesteps=model.config.timesteps)
     cfg = cfg.replace(model=model.config, task=task_cfg)
-    task = DiffusionTask(model, task_cfg)
-    run_dir = make_run_dir(cfg, "transcribe")
+    task = DiffusionTask(model, task_cfg, mesh=mesh)
+    run_dir = make_run_dir(cfg, "transcribe") if main_rank else None
 
     folder = pathlib.Path(cfg.dataset.audio_path)
     files = sorted(folder.glob(f"*.{cfg.dataset.audio_ext}"))
@@ -72,10 +75,14 @@ def main(argv: Optional[List[str]] = None) -> pathlib.Path:
                                sample_rate=cfg.dataset.sampling_rate,
                                batch_size=cfg.dataloader.test_batch_size,
                                overlap_frames=overlap)
+        if not main_rank:
+            continue
         n_notes = export_clip(run_dir, f"{i:03d}_{f.stem}", roll, cfg)
         manifest.append({"file": f.name, "frames": int(roll.shape[0]), "notes": n_notes})
         print(f"{f.name}: {roll.shape[0]} frames, {n_notes} notes", file=sys.stderr)
 
+    if not main_rank:
+        return None
     (run_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
     print(json.dumps({"run_dir": str(run_dir), "clips": len(manifest)}))
     return run_dir

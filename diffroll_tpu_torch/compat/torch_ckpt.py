@@ -326,7 +326,8 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     variant. Kernels go to the port's layouts (`_kernel`), GroupNorm `scale`
     to `weight`, and the learned unconditional embeddings to the reference's
     (width, frames): `trainable_parameters` (n_mels, spec_frames) and each
-    block's `uncon_z` (2C, frames)."""
+    block's `uncon_z` (2C, frames). DiffWave's params (`nn/diffwave.py`)
+    convert too."""
     p = params.get("params", params)
     unet = "init_conv" in p
     homes = _unet_scopes(p) if unet else {}
@@ -345,6 +346,11 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             name = ".".join(scopes + ["bias"])
         elif leaf == "scale":
             name = ".".join(scopes + ["weight"])
+        elif leaf == "kernel" and scopes[-1].startswith("ConvTranspose_"):
+            # DiffWave's upsampler: flax (kT, k_mel, I, O) -> the reference's
+            # ConvTranspose2d (I, O, k_mel, kT) over (B, 1, n_mels, T), flipped
+            name = ".".join(scopes + ["weight"])
+            a = a.transpose(2, 3, 1, 0)[:, :, ::-1, ::-1]
         elif leaf == "kernel":
             name = ".".join(scopes + ["weight"])
             a = _kernel(a, unet, transposed=unet and scopes[-1].endswith("_us"))

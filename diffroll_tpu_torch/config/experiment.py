@@ -2,10 +2,10 @@
 `diffroll_tpu/config/experiment.py`): top-level knobs plus the model / task /
 dataset / dataloader / trainer groups, with the JAX package's defaults.
 
-Left out until their slices are ported: the trainer's `model_axis`,
-`data_axis`, `rng_impl` and `adam_moments_dtype`. Left out for good:
-`dataloader.transfer` (training batches always cross as float32 through
-pinned memory with a non-blocking copy, `data/pipeline.to_device`) and
+Left out for good: the trainer's `rng_impl` (it picks a `jax.random`
+implementation), `dataloader.transfer` (training batches always cross as
+float32 through pinned memory with a non-blocking copy,
+`data/pipeline.to_device`) and
 `serve.compile_cache_dir` (the XLA compilation cache; eager PyTorch compiles
 nothing per shape).
 `device` is the port's own knob.
@@ -80,10 +80,19 @@ class TrainerConfig:
     output_dir: str = "outputs"
     run_name: Optional[str] = None            # default: auto from hparams
     seed: int = 0
+    # the data axis (parallel/mesh.py): None = the world size of the launched
+    # group (torchrun --nproc_per_node=N), 1 process otherwise; any other
+    # value must equal the world size, and the train batch must divide by
+    # it. model_axis > 1 (tensor parallelism) is not ported and raises.
+    model_axis: int = 1
+    data_axis: Optional[int] = None
     log_every_n_steps: int = 50
     profile: bool = False                     # torch.profiler trace of the first epoch
     # exponential moving average of the weights; None = off
     ema_decay: Optional[float] = None
+    # "bfloat16": Adam's moments stored in bf16, written back with
+    # stochastic rounding (train/state.BF16MomentAdam); None = f32 moments
+    adam_moments_dtype: Optional[str] = None
 
     def replace(self, **kw) -> "TrainerConfig":
         return dataclasses.replace(self, **kw)

@@ -55,8 +55,33 @@ def to_device(batch: Any, device) -> Any:
     return out
 
 
+def _take_rows(batch: Any, n: int) -> Any:
+    """The first n rows of every leaf of a collated batch."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_take_rows(b, n) for b in batch)
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def _tag_rows(batch: Any, rows: int) -> Any:
+    """Record the global batch's row count in each dict of a stripe."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_tag_rows(b, rows) for b in batch)
+    return {**batch, "global_rows": rows}
+
+
 class DataLoader:
-    """Minimal epoch iterator: shuffle, batch, parallel fetch, prefetch."""
+    """Minimal epoch iterator: shuffle, batch, parallel fetch, prefetch.
+
+    With `process_count` > 1 (the data axis, parallel/mesh.py) every process
+    walks the same global batches of `batch_size` and reads only its rows
+    `process_index::process_count` of each, and each batch dict carries the
+    global batch's row count as the int `global_rows`. So every process
+    takes the same number of steps, and the union of the stripes of batch k
+    is the single-process batch k. (The JAX loader stripes the index and
+    batches each stripe, for a per-host batch; the stripes of a full global
+    batch hold the same clips.) A stripe of a short last batch may be empty:
+    its arrays then have zero rows.
+    """
 
     def __init__(
         self,
@@ -67,7 +92,13 @@ class DataLoader:
         seed: int = 0,
         num_workers: int = 4,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -113,6 +144,15 @@ class DataLoader:
         # `getitem_at(idx, epoch)` get the epoch explicitly, making random
         # train windows a pure function of (seed, clip, epoch) — no shared
         # draw counter, so even concurrent iterators stay reproducible.
+        if self.process_count == 1:
+            return self._collate(b, epoch)
+        mine = b[self.process_index::self.process_count]
+        out = self._collate(mine if len(mine) else b[:1], epoch)
+        if not len(mine):
+            out = _take_rows(out, 0)
+        return _tag_rows(out, len(b))
+
+    def _collate(self, b: np.ndarray, epoch: int) -> Any:
         if hasattr(self.dataset, "getitem_at"):
             return collate([self.dataset.getitem_at(j, epoch) for j in b])
         return collate([self.dataset[j] for j in b])

@@ -25,7 +25,10 @@ from . import conditioning
 @dataclasses.dataclass(frozen=True)
 class DiffRollConfig:
     """Same fields and defaults as `diffroll_tpu.models.base.DiffRollConfig`;
-    `dtype` is the dtype's name instead of a jnp dtype."""
+    `dtype` is the dtype's name instead of a jnp dtype. It is the 1-D net's
+    compute dtype (`compute_dtype`); the parameters stay f32. As in the JAX
+    package, the 2-D net and the U-Nets are built without it and run f32,
+    and the fused routes (the kernels) are bf16 whatever it says."""
 
     name: str = "ClassifierFreeDiffRoll"
     variant: str = "1d"
@@ -54,6 +57,15 @@ class DiffRollConfig:
     def replace(self, **kw) -> "DiffRollConfig":
         return dataclasses.replace(self, **kw)
 
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """`dtype` as a torch dtype; None for float32 (no casts at all)."""
+        if self.dtype == "float32":
+            return None
+        dt = getattr(torch, str(self.dtype), None)
+        if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+            raise ValueError(f"model.dtype={self.dtype!r} is not a floating dtype's name")
+        return dt
+
     def dilations(self) -> Tuple[int, ...]:
         """Per-layer dilation schedule base^(i % bound)."""
         return tuple(self.dilation_base ** (i % self.dilation_bound)
@@ -79,6 +91,7 @@ class DiffRollModel(nn.Module):
                 frames=c.frames,
                 spec_frames=c.mel.num_frames(c.frames * c.mel.hop_length),
                 n_mels=c.n_mels,
+                dtype=c.compute_dtype(),
             )
         elif c.variant == "2d":
             self.net = DiffRollNet2D(

@@ -15,6 +15,14 @@ Classifier-free conditioning, driven by an explicit per-sample `uncond_mask`:
                                 the projected conditioner
 `cond_projections` precomputes every layer's projected conditioner once per
 clip; the per-step forward then takes them through `cond_proj=`.
+
+`DiffRollNet(dtype=torch.bfloat16)` is the counterpart of flax's `dtype=`
+(`model.dtype=bfloat16`): the parameters stay f32; `input_projection`,
+`skip_projection` and each block's convs and `diffusion_projection` compute
+in bf16 by explicit casts (nn/resblock.py), so the residual and skip sums
+are bf16; the `DiffusionEmbedding` and the net's `output_projection` stay
+f32, and the net returns f32. Plain `torch.autocast` would put the head in
+bf16 too, so it is not used. The 2-D net stays f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,19 +45,22 @@ class DiffRollNet(nn.Module):
                  dilation_bound: int = 4, max_steps: int = 200,
                  out_features: int = 88, unconditional: bool = False,
                  condition: str = "fixed", frames: int = 640,
-                 spec_frames: int = 641, n_mels: int = 229):
+                 spec_frames: int = 641, n_mels: int = 229,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if condition not in CONDITIONS:
             raise ValueError(f"unrecognized condition {condition!r}")
         c = residual_channels
         self.unconditional = unconditional
         self.condition = condition
+        self.dtype = dtype
         self.input_projection = conv1d(out_features, c, 1)
         self.diffusion_embedding = DiffusionEmbedding(max_steps)
         self.residual_layers = nn.ModuleList([
             ResidualBlock(c, dilation_base ** (i % dilation_bound), kernel_size,
                           conditional=not unconditional, n_cond=n_mels,
-                          trainable_z=condition == "trainable_z", z_frames=frames)
+                          trainable_z=condition == "trainable_z", z_frames=frames,
+                          dtype=dtype)
             for i in range(residual_layers)
         ])
         self.skip_projection = conv1d(c, c, 1)
@@ -88,15 +99,16 @@ class DiffRollNet(nn.Module):
         if conditional and cond_proj is None:
             cond_proj = self.cond_projections(cond, uncond_mask)
 
-        x = torch.relu(pointwise(x_t, self.input_projection))
+        x = torch.relu(pointwise(x_t, self.input_projection, self.dtype))
         t_emb = self.diffusion_embedding(t)
         skip_sum = None
         for i, block in enumerate(self.residual_layers):
             x, skip = block(x, t_emb, cond_proj[i] if conditional else None)
             skip_sum = skip if skip_sum is None else skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
-        x = torch.relu(pointwise(x, self.skip_projection))
-        return pointwise(x, self.output_projection)
+        x = torch.relu(pointwise(x, self.skip_projection, self.dtype))
+        # the head stays f32 whatever the compute dtype
+        return pointwise(x.float(), self.output_projection)
 
 
 class DiffRollNet2D(nn.Module):

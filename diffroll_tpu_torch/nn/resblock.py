@@ -10,6 +10,12 @@ works on the reference's (B, C, 88, T). Both compute
     g = sigmoid(y[:C]) * tanh(y[C:])          (split over channels)
     residual, skip = split(output_projection(g))
     return (x + residual) / sqrt(2), skip
+
+The 1-D block's `dtype` follows flax's `dtype=`: with torch.bfloat16, each of
+its convs and its Linear casts input, weight and bias to bf16 by hand and
+returns bf16, while the parameters stay f32 (no autocast: the net's head
+must stay f32, see nn/denoiser.py). Ops between them promote as jnp does: a
+bf16 sum stays bf16, a bf16 + f32 one is f32.
 """
 
 from __future__ import annotations
@@ -42,9 +48,16 @@ def conv2d(in_ch: int, out_ch: int, kernel_size: int, **kw) -> nn.Conv2d:
     return conv
 
 
-def pointwise(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
-    """A 1x1 Conv1d applied to a channels-last (B, T, I) tensor."""
-    return F.linear(x, conv.weight[:, :, 0], conv.bias)
+def _cast(dtype: Optional[torch.dtype], *tensors: torch.Tensor):
+    """The tensors in the compute dtype (as they are where it is None)."""
+    return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
+
+
+def pointwise(x: torch.Tensor, conv: nn.Conv1d,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A 1x1 Conv1d applied to a channels-last (B, T, I) tensor, computed in
+    `dtype` where given."""
+    return F.linear(*_cast(dtype, x, conv.weight[:, :, 0], conv.bias))
 
 
 class ResidualBlock(nn.Module):
@@ -55,9 +68,11 @@ class ResidualBlock(nn.Module):
     def __init__(self, residual_channels: int, dilation: int = 1,
                  kernel_size: int = 3, conditional: bool = True,
                  n_cond: int = 229, emb_dim: int = 512,
-                 trainable_z: bool = False, z_frames: int = 640):
+                 trainable_z: bool = False, z_frames: int = 640,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = residual_channels
+        self.dtype = dtype
         self.dilated_conv = conv1d(c, 2 * c, kernel_size,
                                    padding=_same_padding(kernel_size, dilation),
                                    dilation=dilation)
@@ -75,7 +90,7 @@ class ResidualBlock(nn.Module):
                   uncond_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, n_cond) -> (B, T, 2C); with `trainable_z`, rows where
         `uncond_mask` is set take `uncon_z` (its first T frames) instead."""
-        proj = pointwise(cond, self.conditioner_projection)
+        proj = pointwise(cond, self.conditioner_projection, self.dtype)
         if self.trainable_z and uncond_mask is not None:
             z = self.uncon_z[:, : cond.shape[1]].t()
             proj = torch.where(uncond_mask[:, None, None], z[None], proj)
@@ -83,15 +98,20 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 cond_proj: Optional[torch.Tensor] = None):
-        step = self.diffusion_projection(t_emb)
-        y = x + step[:, None, :]
-        y = self.dilated_conv(y.transpose(1, 2)).transpose(1, 2)
+        dt = self.dtype
+        lin, conv = self.diffusion_projection, self.dilated_conv
+        step = F.linear(*_cast(dt, t_emb, lin.weight, lin.bias))
+        y = F.conv1d(*_cast(dt, (x + step[:, None, :]).transpose(1, 2), conv.weight, conv.bias),
+                     padding=conv.padding, dilation=conv.dilation).transpose(1, 2)
+        # the elementwise chains run in f32 and round once, at the next conv
+        # or the block's outputs, as XLA keeps excess precision inside a
+        # fusion (every `.float()` / `.to` is a no-op on the f32 path)
         if cond_proj is not None:
-            y = y + cond_proj
-        gate, filt = y.chunk(2, dim=-1)
+            y = y.float() + cond_proj.float()
+        gate, filt = y.float().chunk(2, dim=-1)
         y = torch.sigmoid(gate) * torch.tanh(filt)
-        residual, skip = pointwise(y, self.output_projection).chunk(2, dim=-1)
-        return (x + residual) * SQRT_HALF, skip
+        residual, skip = pointwise(y, self.output_projection, dt).chunk(2, dim=-1)
+        return ((x.float() + residual.float()) * SQRT_HALF).to(residual.dtype), skip
 
 
 class ResidualBlock2D(nn.Module):

@@ -16,6 +16,8 @@ The JAX task only ever calls `model.apply`, so this one runs
 `DiffRollBaseline` (kernel 7, dilation 1) through the `nn.Module`s, on the
 model's device, and launches no kernel: none of the four kernels covers a
 one-shot regression, and the stack kernel's operands are never prepared here.
+Over the data axis (`mesh`) the dummy inputs and the walk's noise are the
+global batch's, striped, as in tasks/diffusion.py.
 """
 
 from __future__ import annotations
@@ -51,9 +53,11 @@ class BaselineConfig:
 class BaselineTask:
     """Binds a model to the one-shot regression; the weights live in the model."""
 
-    def __init__(self, model: DiffRollModel, config: BaselineConfig = BaselineConfig()):
+    def __init__(self, model: DiffRollModel, config: BaselineConfig = BaselineConfig(),
+                 mesh=None):
         self.model = model
         self.config = config
+        self.mesh = mesh
         self.schedule = linear_schedule(config.beta_start, config.beta_end, config.timesteps)
 
     def dummy_inputs(self, shape, generator: Optional[torch.Generator],
@@ -87,9 +91,15 @@ class BaselineTask:
     def _forward(self, batch, generator, x_t, t):
         roll = batch["frame"]
         if x_t is None or t is None:
-            dx, dt = self.dummy_inputs(roll.shape, generator, roll.device)
+            mesh = self.mesh
+            n = roll.shape[0] if mesh is None else mesh.global_rows(batch, roll.shape[0])
+            dx, dt = self.dummy_inputs((n,) + tuple(roll.shape[1:]), generator, roll.device)
+            if mesh is not None:
+                dx, dt = mesh.stripe(dx), mesh.stripe(dt)
             x_t = dx if x_t is None else x_t
             t = dt if t is None else t
+        if roll.shape[0] == 0:
+            return roll, None
         cond = self.model.conditioner(waveform=batch["audio"])
         return self.model.apply(x_t, t, cond, None), cond
 
@@ -103,6 +113,9 @@ class BaselineTask:
         del train
         roll = batch["frame"]
         pred, cond = self._forward(batch, generator, x_t, t)
+        if roll.shape[0] == 0:  # an empty stripe of a short last batch
+            zero = roll.sum()
+            return zero, ({"amt_loss": zero}, {})
         losses = {"amt_loss": torch.mean((pred - roll) ** 2)}
         tensors = {"pred_roll": pred, "label_roll": roll, "spec": cond}
         total = sum(losses[k] for k in self.config.loss_keys)
@@ -116,15 +129,25 @@ class BaselineTask:
         """The evaluation walk: an x0-parameterised DDPM loop over all T
         steps, one forward a step (the network ignores t anyway). The per-step
         draws come as `noise` (T, *x_T.shape) or from `generator` in one
-        tensor. Returns (x_0, trajectory or None), as `DiffusionTask.sample`."""
+        tensor. Returns (x_0, trajectory or None), as `DiffusionTask.sample`
+        (over `self.mesh`, the global batch on rank 0 and None elsewhere)."""
         del roll_cond
-        cond = self.model.conditioner(waveform=waveform)
         n = self.config.timesteps
         if noise is None:
             if generator is None:
                 raise ValueError("the baseline's walk needs `noise` or a `generator`")
             noise = torch.randn((n,) + tuple(x_T.shape), generator=generator,
                                 device=x_T.device, dtype=torch.float32)
+        if self.mesh is not None:
+            if record_every is not None:
+                raise ValueError("a trajectory is not sampled over the data axis")
+            return self.mesh.sample_stripes(self._sample_rows, x_T, waveform, None, noise), None
+        return self._sample_rows(x_T, waveform, None, noise, record_every)
+
+    def _sample_rows(self, x_T, waveform, roll_cond, noise, record_every=None):
+        """The walk on this process's rows, the draws given."""
+        n = self.config.timesteps
+        cond = self.model.conditioner(waveform=waveform)
 
         def step(x, t, t_prev, n_i):
             t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)

@@ -20,6 +20,12 @@ trainable conditioning, the 2-D net, the U-Nets) take the `nn.Module` path
 in both, as the JAX package takes XLA; a U-Net, which has no separable
 conditioner projection, runs the conditioned forward every step.
 
+With a data axis (`mesh`, parallel/mesh.py) the task's draws are the
+global batch's, striped: `loss_fn` draws t, noise and the dropout mask for
+the global batch and keeps this rank's rows, and `sample` draws the global
+batch's per-step noise, samples this rank's rows and gathers the rolls to
+rank 0, so both equal the single-process run on the same global batch.
+
 Guidance note (as in the JAX package): the unconditional branch of every
 guided sampler, cfdg_ddim_x0 included, conditions on spec := -1.
 """
@@ -84,9 +90,10 @@ class TaskConfig:
 class DiffusionTask:
     """Binds a model to the diffusion process; the weights live in the model."""
 
-    def __init__(self, model: DiffRollModel, config: TaskConfig = TaskConfig()):
+    def __init__(self, model: DiffRollModel, config: TaskConfig = TaskConfig(), mesh=None):
         self.model = model
         self.config = config
+        self.mesh = mesh
         self.schedule: Schedule = linear_schedule(
             config.beta_start, config.beta_end, config.timesteps)
         if config.sampling_type not in SAMPLER_TABLE:
@@ -169,9 +176,9 @@ class DiffusionTask:
         `batch` is {'frame': (B, 640, 88), 'audio': (B, L)} on the model's
         device, or a pair of such dicts for the dual-dataset recipe. The
         timesteps, the noise and the spec-dropout mask are drawn from
-        `generator` (on the model's device) unless given. `impl` picks the
-        route of `fused_train` (see `_forward_train`); the default is both
-        kernels on a CUDA model.
+        `generator` (on the model's device) unless given; given ones are this
+        rank's rows. `impl` picks the route of `fused_train` (see
+        `_forward_train`); the default is both kernels on a CUDA model.
         """
         cfg = self.config
         if train:
@@ -182,18 +189,33 @@ class DiffusionTask:
 
         roll = self.model.normalize_roll(b1["frame"])
         bsz, dev = roll.shape[0], roll.device
+        mesh = self.mesh
+        # the global batch's draws, this rank's rows of them (parallel/mesh.py)
+        n = bsz if mesh is None else mesh.global_rows(batch, bsz)
+        stripe = (lambda x: x) if mesh is None else mesh.stripe
         if t is None:
-            t = torch.randint(0, cfg.timesteps, (bsz,), generator=generator, device=dev)
+            t = stripe(torch.randint(0, cfg.timesteps, (n,), generator=generator, device=dev))
         if noise is None:
-            noise = torch.randn(roll.shape, generator=generator, device=dev, dtype=roll.dtype)
+            noise = stripe(torch.randn((n,) + tuple(roll.shape[1:]), generator=generator,
+                                       device=dev, dtype=roll.dtype))
+        mc = self.model.config
+        # `_conditioner` gives None only without a conditioner at all
+        has_cond = (self.config.debug or mc.cond_source == "roll"
+                    or not (mc.cond_source == "none" or mc.unconditional))
+        p = mc.spec_dropout
+        drop = train and p > 0 and has_cond
+        if drop and uncond_mask is None:
+            uncond_mask = stripe(spec_dropout_mask(n, p, generator, dev))
+        if bsz == 0:
+            # an empty stripe of a short last batch: the draws above keep the
+            # generator in step with the other ranks; nothing to evaluate
+            zero = roll.sum()
+            keys = ("diffusion_loss",) + (("unconditional_diffusion_loss",) if dual else ())
+            return zero, ({k: zero for k in keys}, {})
         x_t = q_sample(roll, t, self.schedule, noise)
 
         cond = self._conditioner(b1, roll)
-        p = self.model.config.spec_dropout
-        if train and p > 0 and cond is not None:
-            if uncond_mask is None:
-                uncond_mask = spec_dropout_mask(bsz, p, generator, dev)
-        else:
+        if not (drop and cond is not None):
             uncond_mask = None
 
         pred = self._forward_train(x_t, t, cond, uncond_mask, impl)
@@ -361,9 +383,13 @@ class DiffusionTask:
         (n, *x_T.shape), or draw them in one tensor from `generator`, so
         both routes consume the same numbers. Deterministic samplers draw
         none.
+
+        Over the task's data axis (`self.mesh`) x_T, waveform, roll_cond and
+        noise are the global batch's: this rank samples its rows rank::size
+        and rank 0 gets the whole batch back as a CPU tensor, every other
+        rank None.
         """
         cfg = self.config
-        cond = self.build_conditioner(x_T, waveform, roll_cond)
         n = len(timestep_subsequence(cfg.timesteps, cfg.sampling_steps))
         if not SAMPLER_TABLE[cfg.sampling_type][3]:
             noise = None
@@ -372,6 +398,17 @@ class DiffusionTask:
                 raise ValueError(f"{cfg.sampling_type} needs `noise` or a `generator`")
             noise = torch.randn((n,) + tuple(x_T.shape), generator=generator,
                                 device=x_T.device, dtype=torch.float32)
+        if self.mesh is not None:
+            if record_every is not None:
+                raise ValueError("a trajectory is not sampled over the data axis")
+            return self.mesh.sample_stripes(self._sample_rows, x_T, waveform, roll_cond,
+                                            noise), None
+        return self._sample_rows(x_T, waveform, roll_cond, noise, record_every)
+
+    def _sample_rows(self, x_T, waveform, roll_cond, noise, record_every=None):
+        """The reverse process on this process's rows, the draws given."""
+        cfg = self.config
+        cond = self.build_conditioner(x_T, waveform, roll_cond)
         if record_every is None and self._megakernel_applies(x_T.device):
             return self._sample_megakernel(x_T, cond, noise), None
         return sample_loop(self.make_step_fn(cond), x_T, cfg.timesteps, noise,

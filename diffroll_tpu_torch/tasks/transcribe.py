@@ -4,6 +4,7 @@ overlap stitching (counterpart of `diffroll_tpu/tasks/transcribe.py`)."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ def transcribe_long(
     sample_rate: int = 16000,
     batch_size: int = 8,
     overlap_frames: int = 32,
-) -> np.ndarray:
+) -> Optional[np.ndarray]:
     """Transcribe a waveform of any length -> (n_frames, 88) roll.
 
     Audio at another rate than the model's is resampled first. Windows run
@@ -69,6 +70,11 @@ def transcribe_long(
     device; x_T and the per-step noise come from `generator` (which must
     live on that device). Unlike the JAX package, a short last batch is
     not padded: eager PyTorch has no compiled shape to keep.
+
+    Over the task's data axis (`task.mesh`) each batch's windows are
+    striped over the ranks (x_T and the noise drawn for the whole batch on every rank), the
+    rolls gathered to rank 0, which stitches them and returns the roll;
+    every other rank returns None.
     """
     mc = task.model.config
     device = task.model.device
@@ -89,5 +95,9 @@ def transcribe_long(
         x_T = torch.randn((chunk.shape[0], mc.frames, mc.pitches),
                           generator=generator, device=device)
         out, _ = task.sample(x_T, waveform=chunk, generator=generator)
+        if out is None:  # not rank 0 of the data axis: the rolls went there
+            continue
         rolls.append(out.cpu().numpy())
+    if not rolls:
+        return None
     return stitch_rolls(np.concatenate(rolls, axis=0), overlap_frames, total_frames)

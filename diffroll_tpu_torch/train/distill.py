@@ -20,6 +20,11 @@ Routes on a CUDA model (the JAX package calls `model.apply` for both):
 Every stage's student has its own `torch.optim.Adam(lr)` with fresh moments,
 and draws its transitions and noise from a `torch.Generator` on the model's
 device, seeded per stage (student_steps * 7919 + 13).
+
+Over the data axis (`mesh`) the student's step is data-parallel: each rank
+draws the global batch's transitions and noise and keeps its stripe, the
+gradients are averaged (`make_train_step(mesh=)`), and the frozen teacher
+is replicated, prepared once per stage on every rank.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ def make_distill_loss(
     snr_clip: float = 1.0,
     snr_cap: Optional[float] = 5.0,
     conditioner: Optional[Callable[[Dict], torch.Tensor]] = None,
+    mesh=None,
 ):
     """The distillation loss `(batch, generator, train, *, i=None,
     noise=None) -> (loss, (losses, tensors))` of the student `task.model`,
@@ -102,8 +108,9 @@ def make_distill_loss(
     included), form x_t ~ q(x_t | x0), run the teacher two DDIM steps, invert
     the student's one step for its x0 target, and regress with the truncated
     SNR weight. The student takes no spec-dropout mask. `i` (B,) and `noise`
-    (B, T, 88) are drawn from `generator` unless given. The prepared teacher
-    is the returned function's `teacher` attribute.
+    (B, T, 88) are drawn from `generator` unless given (with `mesh`, the
+    global batch's, striped; given ones are this rank's rows). The prepared
+    teacher is the returned function's `teacher` attribute.
     """
     model, dev = task.model, task.model.device
     # the tables and grids live on the model's device: a step copies nothing
@@ -126,10 +133,13 @@ def make_distill_loss(
         roll = model.normalize_roll(batch["frame"])
         bsz = roll.shape[0]
         cond = conditioner(batch)
+        rows = bsz if mesh is None else mesh.global_rows(batch, bsz)
+        stripe = (lambda x: x) if mesh is None else mesh.stripe
         if i is None:
-            i = torch.randint(0, n, (bsz,), generator=generator, device=dev)
+            i = stripe(torch.randint(0, n, (rows,), generator=generator, device=dev))
         if noise is None:
-            noise = torch.randn(roll.shape, generator=generator, device=dev, dtype=roll.dtype)
+            noise = stripe(torch.randn((rows,) + tuple(roll.shape[1:]), generator=generator,
+                                       device=dev, dtype=roll.dtype))
         # i == n - 1 is the last transition: t = grid[-1] (0), tm = 0, tp = -1
         t = grid[i]
         last = i >= n - 1
@@ -171,6 +181,7 @@ def distill_stage(
     snr_cap: Optional[float] = 5.0,
     log: Optional[Callable[[int, float], None]] = None,
     conditioner: Optional[Callable[[Dict], torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[DiffRollModel, float]:
     """One halving: train a student, a deep copy of `teacher`, on the
     `student_steps` grid of `task_config.timesteps`. The teacher is frozen
@@ -181,9 +192,10 @@ def distill_stage(
     teacher.eval().requires_grad_(False)
     task = DiffusionTask(student, task_config)
     loss_fn = make_distill_loss(task, teacher, student_grid, midpoints, guided=guided, w=w,
-                                snr_clip=snr_clip, snr_cap=snr_cap, conditioner=conditioner)
+                                snr_clip=snr_clip, snr_cap=snr_cap, conditioner=conditioner,
+                                mesh=mesh)
     state = TrainState.create(student, lr)
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, mesh)
     dev = student.device
     generator = torch.Generator(device=dev).manual_seed(student_steps * 7919 + 13)
     losses: Dict[str, torch.Tensor] = {}
@@ -202,6 +214,7 @@ def progressive_distill(
     batches: Iterator[Any],
     config: DistillConfig = DistillConfig(),
     log: Optional[Callable[[str], None]] = None,
+    mesh=None,
 ) -> Dict[int, DiffRollModel]:
     """The whole halving chain from `model`: {student_steps: student} for
     every stage, each stage's teacher the student before it (guidance is
@@ -216,6 +229,6 @@ def progressive_distill(
             teacher, task_config, batches, n, n_steps=config.steps_per_stage, lr=config.lr,
             guided=guided, w=config.w, snr_clip=config.snr_clip, snr_cap=config.snr_cap,
             log=(lambda it, v: log(f"  step {it}: distill_loss {v:.6g}"))
-            if log is not None else None)
+            if log is not None else None, mesh=mesh)
         out[n] = teacher
     return out

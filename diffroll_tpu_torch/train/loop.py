@@ -1,10 +1,17 @@
 """The fit loop: epochs, validation, monitored checkpointing, logging
-(counterpart of `diffroll_tpu/train/loop.py`, for one device).
+(counterpart of `diffroll_tpu/train/loop.py`).
 
 One eager train step (see `step.py`) driven by a host loop, validation every
 `check_val_every_n_epoch` epochs, a monitored best-checkpoint policy
 (`monitor` / `save_top_k` / `save_last`), JSONL metrics, an optional EMA of
 the weights, and an optional torch.profiler trace of the first epoch.
+
+Over the data axis (`mesh`): every rank starts from rank 0's weights, its
+generator seeded alike, and steps on its stripe of each global batch with
+the gradients averaged; the validation losses are reduced over the ranks,
+so every rank sees the global ones; the EMA is kept on every rank (the
+weights are the same bits everywhere). The caller passes the logger, the
+checkpointer and the hook on rank 0 only, so only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -24,15 +31,32 @@ from .state import TrainState
 from .step import make_eval_step, make_train_step
 
 
-def _batch_size(batch: Any) -> int:
+def _batch_size(batch: Any, mesh=None) -> int:
+    """The rows of the (global) batch."""
     first = batch[0] if isinstance(batch, (tuple, list)) else batch
-    return int(first["frame"].shape[0])
+    rows = int(first["frame"].shape[0])
+    return rows if mesh is None else mesh.global_rows(batch, rows)
 
 
 def _mean_losses(records) -> Dict[str, float]:
     if not records:
         return {}
     return {k: float(np.mean([float(r[k]) for r in records])) for k in records[0]}
+
+
+def _mean_losses_over(mesh, records, rows) -> Dict[str, float]:
+    """The mean over validation batches of each global batch's loss, from
+    every rank's losses on its stripe (weighted by the stripe's rows: a
+    short last batch's stripes differ), in one all-reduce."""
+    if not records:
+        return {}
+    keys = list(records[0])
+    dev = records[0][keys[0]].device
+    table = torch.tensor([[float(r[k]) * n for k in keys] + [n]
+                          for r, n in zip(records, rows)], dtype=torch.float64)
+    table = mesh.all_reduce_sum(table.to(dev)).cpu()
+    per_batch = table[:, :-1] / table[:, -1:]
+    return {k: float(per_batch[:, j].mean()) for j, k in enumerate(keys)}
 
 
 def _resolve_monitor(monitor: str, train_losses: Dict[str, Any],
@@ -64,23 +88,28 @@ def fit(
     logger: Optional[MetricLogger] = None,
     config_record: Optional[Dict[str, Any]] = None,
     val_hook=None,
+    mesh=None,
 ) -> TrainState:
     """Train to `trainer.max_epochs` on the model's device. Returns the
-    final state (the same object, updated in place).
+    final state (the same object, updated in place; `state.ema` holds the
+    EMA weights when `trainer.ema_decay` is set).
 
     `val_hook(state, batch) -> dict` may add extra metrics on the first
     validation batch of each eval epoch.
     """
-    step_fn = make_train_step(task.loss_fn)
+    step_fn = make_train_step(task.loss_fn, mesh)
     eval_fn = make_eval_step(task.loss_fn)
     device = state.model.device
     generator = torch.Generator(device=device).manual_seed(trainer.seed)
+    if mesh is not None:
+        mesh.broadcast_module(state.model.net)
 
     # EMA of the weights (TrainerConfig.ema_decay): tracked beside the state,
     # saved as a checkpoint extra, preferred at eval time when present
     ema = None
     if trainer.ema_decay:
         ema = {name: p.detach().clone() for name, p in state.model.net.named_parameters()}
+    state.ema = ema
 
     def ckpt_extras():
         return {"ema": ema} if ema is not None else None
@@ -90,14 +119,14 @@ def fit(
     losses: Dict[str, Any] = {}
 
     for epoch in range(trainer.max_epochs):
-        with trace_if(trainer.profile and epoch == 0,
+        with trace_if(trainer.profile and epoch == 0 and (mesh is None or mesh.is_main),
                       str(logger.run_dir / "profile") if logger else "profile"):
             for batch in train_loader:
                 batch = to_device(batch, device)
                 losses = step_fn(state, batch, generator)
                 if ema is not None:
                     ema_update(ema, state.model.net, float(trainer.ema_decay))
-                timer.tick(_batch_size(batch))
+                timer.tick(_batch_size(batch, mesh))
                 if logger and state.step % trainer.log_every_n_steps == 0:
                     scalars = {f"train/{k}": v for k, v in losses.items()}
                     scalars.update(timer.rates())
@@ -111,12 +140,16 @@ def fit(
             records = []
             extra: Dict[str, float] = {}
             state.model.eval()
+            rows = []
             for i, batch in enumerate(val_loader):
                 batch = to_device(batch, device)
                 records.append(eval_fn(batch, generator))
+                first = batch[0] if isinstance(batch, (tuple, list)) else batch
+                rows.append(int(first["frame"].shape[0]))
                 if i == 0 and val_hook is not None:
                     extra = val_hook(state, batch) or {}
-            val_losses = _mean_losses(records)
+            val_losses = (_mean_losses(records) if mesh is None
+                          else _mean_losses_over(mesh, records, rows))
             if logger and val_losses:
                 scalars = {f"val/{k}": v for k, v in val_losses.items()}
                 scalars.update(extra)

@@ -1,5 +1,5 @@
-"""The training step for one device (counterpart of
-`diffroll_tpu/train/step.py`; the mesh-sharded step is not ported)."""
+"""The training step (counterpart of `diffroll_tpu/train/step.py`), on one
+device or over the data axis (parallel/mesh.py)."""
 
 from __future__ import annotations
 
@@ -13,19 +13,27 @@ from .state import TrainState
 LossFn = Callable[..., Any]
 
 
-def make_train_step(loss_fn: LossFn):
+def make_train_step(loss_fn: LossFn, mesh=None):
     """`(state, batch, generator) -> losses`: zero_grad, loss, backward, Adam
     step, in place on `state`. The losses come back detached and stay on the
-    device, so a step forces no host synchronisation."""
+    device, so a step forces no host synchronisation.
+
+    With `mesh` the gradients and the losses are averaged over the ranks
+    after `backward` (`DataMesh.average_gradients`), whatever route the loss
+    took (the modules under autograd, or K3 + K4 through `GatedStackFn`),
+    so every rank applies the same update: the global batch's."""
 
     def step(state: TrainState, batch: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         total, (losses, _) = loss_fn(batch, generator, True)
         total.backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if mesh is not None:
+            losses = mesh.average_gradients(state.model.net.parameters(), losses)
         state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step
 

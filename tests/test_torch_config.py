@@ -45,7 +45,7 @@ def _assert_same_fields(j, t, left_out=()):
     for name in jf:
         jv, tv = getattr(j, name), getattr(t, name)
         if name == "dtype":
-            assert np.dtype(jv).name == tv
+            assert jax.numpy.dtype(jv).name == tv
         elif name == "mel":
             assert dataclasses.asdict(jv) == dataclasses.asdict(tv)
         else:
@@ -170,9 +170,9 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
-# The trainer fields of the JAX package that the port leaves out (the mesh
-# axes, the jax.random implementation and the bf16 Adam moments).
-TRAINER_LEFT_OUT = ("model_axis", "data_axis", "rng_impl", "adam_moments_dtype")
+# The trainer field of the JAX package that the port leaves out: the
+# jax.random implementation.
+TRAINER_LEFT_OUT = ("rng_impl",)
 # The packed host-to-device batch formats are not ported: batches cross as float32.
 DATALOADER_LEFT_OUT = ("transfer",)
 # Every root field is ported; `device` is the port's own.
@@ -245,6 +245,8 @@ def test_experiment_presets_match(name):
     ["sampling", "dataset.audio_ext=wav", "task.w=0.3", "model_name=DiffRoll"],
     ["baseline", "baseline.lr=1e-4", "baseline.time_mode=random", "model.residual_layers=4"],
     ["distill.start_steps=9", "distill.stages=2", "distill.w=0.3", "task_type=baseline"],
+    ["model.dtype=bfloat16", "trainer.adam_moments_dtype=bfloat16", "trainer.data_axis=2",
+     "trainer.model_axis=1"],
 ])
 def test_from_argv_matches(argv):
     jc, jrest, jover = jconfig.from_argv(argv, "spec_roll")
@@ -255,13 +257,15 @@ def test_from_argv_matches(argv):
     jflat, tflat = j_asdict_flat(jc), tconfig.asdict_flat(tc)
     shared = [k for k in tflat if k in jflat and k != "model.dtype"]
     assert len(shared) > 60 and all(jflat[k] == tflat[k] for k in shared)
+    # the model's dtype: a jnp dtype there, its name here
+    assert jax.numpy.dtype(jflat["model.dtype"]).name == tflat["model.dtype"]
 
 
 def test_compose_rejects_unknown_names():
     with pytest.raises(KeyError, match="unknown config"):
         tconfig.compose("no_such_preset")
     with pytest.raises(KeyError):
-        tconfig.compose("spec_roll", {"trainer.model_axis": "2"})
+        tconfig.compose("spec_roll", {"trainer.rng_impl": "rbg"})
 
 
 def test_schedule_tables_are_float32():
