@@ -121,51 +121,79 @@ exits non-zero):
                 --nproc_per_node=1` sets (`--nccl-worker`): `train`, 3 steps. The
                 2-rank step's ms is printed under the label "2 ranks sharing one
                 card: not a scaling figure". Steps and stages are cut, not widths
- 18. k1         the gated-stack kernel vs its plain version at the flagship
+ 18. mp         the model axis, data=1 x model=2: two ranks share the one card in a
+                gloo group (`--mesh-worker mp`): `cli.train.main spec_roll
+                task.fused_train=true trainer.model_axis=2` at B=16 for 3 steps on
+                phase 5's corpus (K3 and K4 once a step on each rank; both ranks'
+                gathered parameters the same bits; each rank's parameter and moment
+                bytes beside one process's and the JAX rule's share, which they must
+                equal); one fixed-draw step against the single-process step (every
+                gradient rel < 0.05 through K3 + K4, < 1e-4 through the column-
+                parallel f32 modules); the model_axis=2 checkpoint loaded by one
+                process, which runs `transcribe` of one window through K2; one
+                `distill` stage (K1 twice and K3, K4 once a step on each rank)
+ 19. serve_mesh the service `serve` builds over the data axis (data=2, `max_batch` 8:
+                4 rows a rank, K2 once a batch on each rank): two requests through
+                rank 0's `transcribe` (8 windows, then 1) against a one-process
+                service with the same seed and the same batches (rel < 0.05, each
+                window's error printed); 8 concurrent 20 s requests through rank
+                0's HTTP front (the right length each, fewer batches than
+                requests), then a burst of 32 for windows per second; then the
+                same two requests through the service at data=1 x model=2 (each
+                rank's parameter bytes below one process's, K2 once a batch on each
+                rank on the gathered weights; rel < 0.05 against one process)
+ 20. sp         sequence parallelism, data=2: the flagship's 640-frame window split
+                320 + 320 (halo at most 8), `sequence_parallel_forward` of (2, 640)
+                against the single-process modules forward (rel < 1e-4, f32, TF32
+                off) and a strided 20-step `sample_sequence_parallel` against the
+                dense modules sampler on the same draws (rel < 1e-3); no kernel
+     The times of 17-20 are printed under the label "2 ranks sharing one card:
+     not a scaling figure". Steps and stages are cut, not widths
+ 21. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 19. k2         the whole-process sampler vs its plain version at B=1 and at
+ 22. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 20. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 23. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 21. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 24. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 22. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 23. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 25. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 26. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
- 24. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+ 27. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
                 stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
                 0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 19: the error against the unrounded f32 weights,
+     beside them in phase 22: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 25. k3         the training forward-with-saves kernel vs its plain version at
+ 28. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 26. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+ 29. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
                 512), the conditional rows then spec := -1: rel < 0.05 and the
                 same bits on a second run
- 27. k4         the training backward kernel vs its plain version from the same
+ 30. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 28. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 31. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 29. distill_grads one guided distill loss + backward at B=16 with fixed
+ 32. distill_grads one guided distill loss + backward at B=16 with fixed
                 transitions and noise: the teacher through K1 and the student
                 through K3 + K4, against both through the nn.Modules on the
                 bf16-rounded weights: every student gradient rel < 0.05, the
                 losses within 1e-2 relative
- 30. times      warm median times of the four kernels and their plain versions
+ 33. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
                 under `*_b8`), of a whole training step at B=16 by three
@@ -191,7 +219,9 @@ its count on its first path, transcribe for K1 and K2, train for K3 and K4;
 drives with the counters reset just before and read just after (transcribe,
 train, test, sample, serve, distill, distill_test: the students' test runs,
 baseline, trainable, v2, unet, spec_unet and bf16, each 0 of every kernel,
-and dp_train, dp_test and dp_distill: rank 0's counts in phase dp).
+dp_train, dp_test and dp_distill: rank 0's counts in phase dp, mp_train and
+mp_distill: rank 0's in phase mp, serve_mesh and sp: rank 0's, sp 0 of every
+kernel).
 K1's `max_abs_err` is its single pass's; `max_abs_err_step_loop` is the
 largest of its step loops' 200-step trajectories against the plain ones.
 """
@@ -1230,6 +1260,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def worker_env():
+    """This script's path, and the environment its worker processes run in:
+    no launcher's variables, the checkout first on the path."""
+    script = str(pathlib.Path(__file__).resolve())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(pathlib.Path(script).parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return script, env
+
+
 def run_workers(cmds, envs, what: str) -> None:
     """Start every command at once, wait for all with a timeout, kill all on
     a failure or the timeout."""
@@ -1250,6 +1291,37 @@ def run_workers(cmds, envs, what: str) -> None:
             raise RuntimeError(f"{what}: process {i} exited {p.returncode}:\n{log[-3000:]}")
 
 
+def step_against_one_process(ckpt: pathlib.Path, grads_path: pathlib.Path, what: str) -> dict:
+    """The whole gradients of a fixed-draw step over the mesh (rank 0 saved
+    them, on both routes) against one process's step at B=16 on the same
+    weights, batch and draws: the worst leaf of each route, held to 0.05
+    through K3 + K4 and 1e-4 through the f32 modules."""
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    model, _ = load_lightning(str(ckpt), device=dev)
+    batch, draws = seeded_step_inputs(model.config, dev)
+    mesh_grads = torch.load(grads_path)
+    init = {n: p.detach().clone() for n, p in model.net.named_parameters()}
+    step_rel = {}
+    for route, fused, gate in (("fused", True, DP_FUSED_GATE), ("modules", False, DP_MODULES_GATE)):
+        with torch.no_grad():
+            for n, p in model.net.named_parameters():
+                p.copy_(init[n])
+        task = DiffusionTask(model, TaskConfig(timesteps=model.config.timesteps,
+                                               fused_train=fused))
+        st = TrainState.create(model, 0.0)
+        make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws))(st, batch, None)
+        want = {n: p.grad.detach().cpu() for n, p in model.net.named_parameters()}
+        name, rel, _ = worst_leaf(mesh_grads[route], want)
+        step_rel[route] = {"worst_leaf": name, "rel": rel, "gate": gate}
+        if not rel < gate:
+            raise RuntimeError(f"{what} step ({route}) against one process: {name} rel {rel}")
+    return step_rel
+
+
 def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
                  kernels) -> dict:
     """Phase dp: two ranks in a gloo group share the one card (NCCL refuses two
@@ -1261,11 +1333,7 @@ def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
     Returns the launch counts of dp_train, dp_test and dp_distill (rank 0's;
     both ranks' are checked)."""
     from diffroll_tpu_torch.cli import test as cli_test
-    from diffroll_tpu_torch.compat import load_lightning
-    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
-    from diffroll_tpu_torch.train import TrainState, make_train_step
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     out = tmp / "dp"
     out.mkdir()
@@ -1288,11 +1356,7 @@ def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
                       f"dataloader.train_batch_size={TRAIN_BATCH}"]}
     spec_path = out / "spec.json"
     spec_path.write_text(json.dumps(spec))
-    script = str(pathlib.Path(__file__).resolve())
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(pathlib.Path(script).parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    script, env = worker_env()
     port = free_port()
     run_workers([[sys.executable, script, "--dp-worker", str(r), "2", str(port), str(spec_path)]
                  for r in range(2)], [env, env], "dp (2 gloo ranks)")
@@ -1311,25 +1375,7 @@ def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
         raise RuntimeError(f"dp train wrote {runs}: rank 0 alone must write")
 
     # the fixed-draw step against one process at B=16
-    model, _ = load_lightning(str(ckpt), device=dev)
-    batch, draws = seeded_step_inputs(model.config, dev)
-    dp_grads = torch.load(out / "dp_grads.pt")
-    init = {n: p.detach().clone() for n, p in model.net.named_parameters()}
-    step_rel = {}
-    for route, fused, gate in (("fused", True, DP_FUSED_GATE), ("modules", False, DP_MODULES_GATE)):
-        with torch.no_grad():
-            for n, p in model.net.named_parameters():
-                p.copy_(init[n])
-        task = DiffusionTask(model, TaskConfig(timesteps=model.config.timesteps,
-                                               fused_train=fused))
-        st = TrainState.create(model, 0.0)
-        make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws))(st, batch, None)
-        want = {n: p.grad.detach().cpu() for n, p in model.net.named_parameters()}
-        name, rel, _ = worst_leaf(dp_grads[route], want)
-        step_rel[route] = {"worst_leaf": name, "rel": rel, "gate": gate}
-        if not rel < gate:
-            raise RuntimeError(f"dp step ({route}) against one process: {name} rel {rel}")
-    del model, dp_grads
+    step_rel = step_against_one_process(ckpt, out / "dp_grads.pt", "dp")
 
     # test: n_clips, K2 once a rank at B=4, the metrics of one process
     single = cli_test.main([f"pretrained_path={last_ckpt}", f"trainer.output_dir={out / 'single'}",
@@ -1393,6 +1439,458 @@ def run_dp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, last_ckpt: pathlib.Path,
     full = lambda d: {fn.__name__: d.get(fn.__name__, 0) for fn in kernels}  # noqa: E731
     return {"dp_train": full(r0["train"]["launches"]), "dp_test": full(r0["test"]["launches"]),
             "dp_distill": full(r0["distill"]["launches"])}
+
+
+MESH_PHASES = ("mp", "serve_mesh", "sp")
+SP_STEPS = 20             # phase sp's strided reverse process
+SP_FORWARD_GATE, SP_SAMPLE_GATE = 1e-4, 1e-3   # f32 against the dense modules (TF32 off)
+
+
+def mesh_worker(name: str, rank: int, world: int, port: int, spec_path: str) -> int:
+    """One rank of phase `name` (mp, serve_mesh or sp): a gloo group of
+    `world` ranks on the one card."""
+    import torch.distributed as dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    from diffroll_tpu_torch.ops import _build
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack
+    from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
+
+    _build.library()
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+    res = {"mp": mp_rank, "serve_mesh": serve_mesh_rank, "sp": sp_rank}[name](rank, spec, kernels)
+    res["rank"] = rank
+    (pathlib.Path(spec["out"]) / f"{name}_rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_rank(rank: int, spec: dict, kernels) -> dict:
+    """Phase mp on one rank (data=1, model=2): `train` with K3 + K4, one
+    fixed-draw step on both routes (rank 0 saves the whole gradients), one
+    distill stage."""
+    from diffroll_tpu_torch import config as tconfig
+    from diffroll_tpu_torch.cli import distill as cli_distill
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.compat import load_lightning, param_sharding
+    from diffroll_tpu_torch.parallel import setup_mesh, shard_module
+    from diffroll_tpu_torch.parallel.model_axis import full_state_dict, full_tensors
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    res = {}
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    state = cli_train.main(spec["train_args"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    net = state.model.net
+    whole = full_state_dict(net)
+    moments = [v for st in state.optimizer.state.values() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    rule = param_sharding(net, 2)
+    res["train"] = {
+        "seconds": seconds, "step": state.step, "launches": kernel_launches(kernels),
+        "digest": params_digest_of(whole), "sharded_leaves": len(rule),
+        "param_bytes": nbytes(*net.parameters()), "moment_bytes": nbytes(*moments),
+        "one_process_param_bytes": nbytes(*whole.values()),
+        "jax_rule_share_bytes": sum(v.numel() * 4 // (2 if n in rule else 1)
+                                    for n, v in whole.items())}
+    del state, net, whole, moments
+
+    mesh = setup_mesh(tconfig.compose("spec_roll", {"trainer.model_axis": "2",
+                                                    "trainer.data_axis": "1"}), dev)
+    grads = {}
+    for route, fused in (("fused", True), ("modules", False)):
+        model, _ = load_lightning(spec["ckpt"], device=dev)
+        batch, draws = seeded_step_inputs(model.config, dev)
+        st = TrainState.create(model, 0.0)   # lr 0: the weights stay the compared ones
+        shard_module(model.net, mesh, st.optimizer)
+        task = DiffusionTask(model, TaskConfig(timesteps=model.config.timesteps,
+                                               fused_train=fused), mesh=mesh)
+        step = make_train_step(lambda b, g, train: task.loss_fn(b, g, train, **draws), mesh)
+        step(st, batch, None)
+        got = full_tensors(model.net, {n: p.grad for n, p in model.net.named_parameters()})
+        grads[route] = {n: g.detach().cpu() for n, g in got.items()}
+        if fused:
+            res["step_ms"] = time_ms(lambda: step(st, batch, None), 3, 1)
+        del model, st, task, step
+    if rank == 0:
+        torch.save(grads, pathlib.Path(spec["out"]) / "mp_grads.pt")
+    del grads
+
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    summary = cli_distill.main(spec["distill_args"])
+    torch.cuda.synchronize()
+    res["distill"] = {"seconds": time.perf_counter() - t0, "stages": summary["stages"],
+                      "run_dir": summary["run_dir"], "launches": kernel_launches(kernels)}
+    return res
+
+
+def serve_mesh_rank(rank: int, spec: dict, kernels) -> dict:
+    """Phase serve_mesh on one rank (data=2, or model=2): the service
+    `serve` builds; rank 0 takes two requests through `transcribe` (the
+    rolls saved), then the HTTP bursts where `spec["bodies"]` holds any;
+    the other rank follows."""
+    import threading
+    import urllib.request
+
+    from diffroll_tpu_torch.cli import serve as cli_serve
+    from diffroll_tpu_torch.serve import serve_forever
+
+    reset_launches(*kernels)
+    svc, cfg, info = cli_serve.make_service(spec["serve_args"])
+    res = {"max_batch": svc.max_batch,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in svc.task.model.net.parameters())}
+    if not svc.leads:
+        svc.follow()
+        torch.cuda.synchronize()
+        res.update(batches=svc.stats["batches"], launches=kernel_launches(kernels))
+        return res
+    reset_launches(*kernels)
+    audio = np.load(spec["audio"])
+    rolls = {k: svc.transcribe(audio[k]) for k in ("long", "short")}
+    np.savez(pathlib.Path(spec["out"]) / spec["rolls"], **rolls)
+    if not spec["bodies"]:
+        svc.close()
+        torch.cuda.synchronize()
+        res.update(batches=svc.stats["batches"], launches=kernel_launches(kernels))
+        return res
+    ready = threading.Event()
+    threading.Thread(target=serve_forever, args=(svc, "127.0.0.1", 0),
+                     kwargs={"info": info, "ready": ready}, daemon=True).start()
+    if not ready.wait(30):
+        raise RuntimeError("the HTTP front did not start")
+    server = ready.server
+    url = f"http://127.0.0.1:{server.server_address[1]}/transcribe"
+    bodies = [pathlib.Path(b).read_bytes() for b in spec["bodies"]]
+
+    def burst(n):
+        out = [None] * n
+
+        def post(i):
+            req = urllib.request.Request(url, data=bodies[i % len(bodies)], method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out[i] = json.loads(r.read())
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        return out
+
+    try:
+        before = dict(svc.stats)
+        first = burst(SERVE_BATCH)
+        mid = dict(svc.stats)
+        t0 = time.perf_counter()
+        load = burst(4 * SERVE_BATCH)
+        load_s = time.perf_counter() - t0
+        after = dict(svc.stats)
+    finally:
+        server.shutdown()
+        svc.close()
+    torch.cuda.synchronize()
+    res.update(frames=[p and p["frames"] for p in first + load],
+               first_burst_batches=mid["batches"] - before["batches"],
+               load_batches=after["batches"] - mid["batches"], load_seconds=load_s,
+               load_requests=4 * SERVE_BATCH, batches=after["batches"],
+               launches=kernel_launches(kernels))
+    return res
+
+
+def sp_rank(rank: int, spec: dict, kernels) -> dict:
+    """Phase sp on one rank (data=2): the flagship's forward and a strided
+    reverse process with the window's 640 frames split 320 + 320; rank 0
+    holds both against the dense modules on the same inputs and draws."""
+    from diffroll_tpu_torch import config as tconfig
+    from diffroll_tpu_torch.compat import load_lightning
+    from diffroll_tpu_torch.parallel import (
+        sample_sequence_parallel, sequence_parallel_forward, setup_mesh)
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+
+    dev = torch.device("cuda")
+    mesh = setup_mesh(tconfig.compose("spec_roll", {"trainer.data_axis": "2"}), dev)
+    model, _ = load_lightning(spec["ckpt"], device=dev)
+    mc = model.config
+    g = torch.Generator().manual_seed(SEED + 41)
+    x = torch.randn(2, mc.frames, mc.pitches, generator=g).to(dev)
+    t = torch.randint(0, mc.timesteps, (2,), generator=g).to(dev)
+    cond = torch.rand(2, mc.frames, mc.n_mels, generator=g).to(dev)
+    x_T = torch.randn(1, mc.frames, mc.pitches, generator=g).to(dev)
+    noise = torch.randn(SP_STEPS, 1, mc.frames, mc.pitches, generator=g).to(dev)
+    wav = torch.from_numpy(chord_wav(mc.frames * mc.mel.hop_length / mc.mel.sample_rate,
+                                     mc.mel.sample_rate, SEED + 42))[None].to(dev)
+    task = DiffusionTask(model.eval(), TaskConfig(timesteps=mc.timesteps, sampling_steps=SP_STEPS,
+                                                  w=W_GUIDANCE, use_fused=False,
+                                                  use_megakernel=False))
+    reset_launches(*kernels)
+    with torch.no_grad():
+        out = sequence_parallel_forward(mesh, model.net, x, t, cond)
+        fwd_ms = time_ms(lambda: sequence_parallel_forward(mesh, model.net, x, t, cond), 3, 1)
+    t0 = time.perf_counter()
+    x0 = sample_sequence_parallel(task, x_T, mesh, waveform=wav, noise=noise)[0]
+    torch.cuda.synchronize()
+    res = {"frames_per_rank": mc.frames // mesh.data, "forward_ms": fwd_ms,
+           "sample_seconds": time.perf_counter() - t0, "launches": kernel_launches(kernels)}
+    if rank == 0:
+        with torch.no_grad():
+            dense = model.apply(x, t, cond)
+        want, _ = task.sample(x_T, waveform=wav, noise=noise)
+        res["forward_rel"], res["forward_max_abs"] = rel_err(out, dense)
+        res["sample_rel"], res["sample_max_abs"] = rel_err(x0, want)
+    return res
+
+
+def params_digest_of(tensors: dict) -> str:
+    """A hash of the bits of named tensors, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_mesh_workers(name: str, tmp: pathlib.Path, spec: dict) -> list:
+    """Two processes of this script, ranks of a gloo group on the one card,
+    running phase `name`; returns each rank's readings."""
+    out = tmp / name
+    out.mkdir(exist_ok=True)
+    spec = {"out": str(out), **spec}
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    script, env = worker_env()
+    port = free_port()
+    run_workers([[sys.executable, script, "--mesh-worker", name, str(r), "2", str(port),
+                  str(spec_path)] for r in range(2)], [env, env], f"{name} (2 gloo ranks)")
+    return [json.loads((out / f"{name}_rank{r}.json").read_text()) for r in range(2)]
+
+
+def run_mp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, kernels) -> dict:
+    """Phase mp: the model axis, data=1 x model=2, two ranks sharing the one
+    card (gloo): `train` at B=16 with K3 + K4 for 3 steps (both ranks' whole
+    parameters the same bits; each rank's bytes beside one process's and
+    the JAX rule's share), a fixed-draw step against one process, the
+    model_axis=2 checkpoint loaded by one process for `transcribe` of one
+    window (K2), and one distill stage. Returns the launch counts of
+    mp_train and mp_distill (rank 0's; both ranks' are checked)."""
+    from diffroll_tpu_torch.cli import transcribe as cli_transcribe
+    from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
+
+    t0 = time.perf_counter()
+    out = tmp / "mp"
+    axes = ["trainer.model_axis=2", "trainer.data_axis=1"]
+    common = [f"dataset.root={tmp / 'data'}", "device=cuda", "audio_format=wav",
+              f"dataloader.train_batch_size={TRAIN_BATCH}", *axes]
+    spec = {"ckpt": str(ckpt),
+            "train_args": ["spec_roll", "task.fused_train=true", "trainer.max_epochs=1",
+                           "trainer.check_val_every_n_epoch=1", "trainer.log_every_n_steps=1",
+                           f"trainer.output_dir={out / 'train'}", *common],
+            "distill_args": [f"pretrained_path={ckpt}", f"distill.start_steps={DISTILL_STAGES[0]}",
+                             "distill.stages=1", f"distill.steps_per_stage={DISTILL_STEPS}",
+                             "task.fused_train=true", f"trainer.output_dir={out / 'distill'}",
+                             *common]}
+    ranks = run_mesh_workers("mp", tmp, spec)
+    r0, r1 = ranks
+    for r in ranks:
+        tr, d = r["train"], r["distill"]
+        if tr["step"] != TRAIN_STEPS or tr["launches"]["fwd_saves"] != TRAIN_STEPS or \
+                tr["launches"]["bwd"] != TRAIN_STEPS:
+            raise RuntimeError(f"mp train on rank {r['rank']}: {tr}")
+        if tr["param_bytes"] != tr["jax_rule_share_bytes"] or \
+                not tr["param_bytes"] < tr["one_process_param_bytes"]:
+            raise RuntimeError(f"mp train on rank {r['rank']}: the chunks are not the rule's: {tr}")
+        if d["stages"] != [DISTILL_STAGES[0]] or d["launches"]["gated_stack"] != \
+                2 * DISTILL_STEPS or d["launches"]["fwd_saves"] != DISTILL_STEPS or \
+                d["launches"]["bwd"] != DISTILL_STEPS:
+            raise RuntimeError(f"mp distill on rank {r['rank']}: {d}")
+    if r0["train"]["digest"] != r1["train"]["digest"]:
+        raise RuntimeError("mp train: the two ranks' whole parameters differ")
+    runs = list((out / "train").glob("*/*/train-*"))
+    if len(runs) != 1 or not (runs[0] / "checkpoints" / "last.ckpt").exists():
+        raise RuntimeError(f"mp train wrote {runs}: rank 0 alone must write")
+    if len(list((out / "distill").glob("*/*/distill-*/distilled_*steps"))) != 1:
+        raise RuntimeError("mp distill: rank 0 alone must write the stage checkpoint")
+    step_rel = step_against_one_process(ckpt, out / "mp_grads.pt", "mp")
+
+    # the model_axis=2 checkpoint in one process: transcribe one window through K2
+    reset_launches(fused_sample)
+    tr_dir = cli_transcribe.main([
+        f"pretrained_path={runs[0] / 'checkpoints' / 'last.ckpt'}",
+        f"dataset.audio_path={tmp / 'window'}", "dataset.audio_ext=wav", f"task.w={W_GUIDANCE}",
+        "device=cuda", f"trainer.output_dir={out / 'transcribe'}"])
+    torch.cuda.synchronize()
+    roll = np.load(next(pathlib.Path(tr_dir).glob("*.npz")))["roll"]
+    if not np.isfinite(roll).all() or fused_sample.launches != 1:
+        raise RuntimeError(f"mp checkpoint in one process: roll {roll.shape}, "
+                           f"K2 {fused_sample.launches}")
+    phase("mp", seconds=time.perf_counter() - t0, ranks=2, data=1, model=2, backend="gloo",
+          batch=TRAIN_BATCH,
+          train={k: r0["train"][k] for k in ("seconds", "step", "launches", "sharded_leaves")},
+          bytes_per_rank={f"rank{r['rank']}": {k: r["train"][k] for k in (
+              "param_bytes", "moment_bytes", "one_process_param_bytes",
+              "jax_rule_share_bytes")} for r in ranks},
+          same_bits_on_both_ranks=True,
+          step_ms={"2 ranks sharing one card: not a scaling figure": [r["step_ms"] for r in ranks]},
+          step_vs_one_process=step_rel, one_process_transcribe={
+              "roll_shape": list(roll.shape), "launches_k2": fused_sample.launches},
+          distill={k: r0["distill"][k] for k in ("seconds", "stages", "launches")})
+    full = lambda d: {fn.__name__: d.get(fn.__name__, 0) for fn in kernels}  # noqa: E731
+    return {"mp_train": full(r0["train"]["launches"]), "mp_distill": full(r0["distill"]["launches"])}
+
+
+def run_serve_mesh_phase(tmp: pathlib.Path, ckpt: pathlib.Path, kernels) -> dict:
+    """Phase serve_mesh: the service over the data axis (data=2), two ranks
+    sharing the one card (gloo), `serve`'s defaults (max_batch 8: 4 rows a
+    rank). Two requests through rank 0's `transcribe` (8 windows, then 1:
+    two batches) against a one-process service with the same seed and the
+    same batches, rel < 0.05 with each row's error printed; then 8
+    concurrent 20 s requests through rank 0's HTTP front, and a burst of 32
+    for windows per second. K2 once a batch on each rank. Then the same two
+    requests through a service at data=1 x model=2 (each rank its chunk of
+    the weights, K2 on the weights gathered once), against the same
+    one-process rolls, rel < 0.05. Returns rank 0's launch counts of the
+    data-axis run."""
+    from diffroll_tpu_torch.cli import serve as cli_serve
+    from diffroll_tpu_torch.tasks.transcribe import split_windows
+
+    t0 = time.perf_counter()
+    sr = 16000
+    argv = [f"pretrained_path={ckpt}", "device=cuda"]
+    svc_frames, hop, overlap = 640, 512, 32
+    seq = svc_frames * hop
+    long = chord_wav((seq + 7 * (seq - overlap * hop)) / sr, sr, SEED + 51)
+    short = chord_wav(12.0, sr, SEED + 52)
+    if len(split_windows(long, seq, hop, overlap)) != SERVE_BATCH:
+        raise RuntimeError("serve_mesh: the long request is not one batch of windows")
+    np.savez(tmp / "serve_mesh_audio.npz", long=long, short=short)
+    bodies = []
+    for i in range(SERVE_BATCH):
+        path = tmp / f"serve_mesh_body{i}.wav"
+        write_wav(path, chord_wav(20.0, sr, SEED + 10 + i), sr)
+        bodies.append(str(path))
+    ranks = run_mesh_workers("serve_mesh", tmp, {
+        "serve_args": argv + ["trainer.data_axis=2"], "audio": str(tmp / "serve_mesh_audio.npz"),
+        "bodies": bodies, "rolls": "data_rolls.npz"})
+    r0, r1 = ranks
+    want_frames = math.ceil(20.0 * sr / hop)
+    if not r0["max_batch"] == r1["max_batch"] == SERVE_BATCH or any(
+            f != want_frames for f in r0["frames"]):
+        raise RuntimeError(f"serve_mesh: max_batch {r0['max_batch']}, frames {r0['frames']}")
+    # rank 0's counts start after the warm-up, rank 1's before it
+    if not (r0["launches"]["fused_sample"] == r0["batches"] and
+            r1["launches"]["fused_sample"] == r1["batches"] == r0["batches"] + 1):
+        raise RuntimeError(f"serve_mesh: K2 not once a batch on each rank: {ranks}")
+    if not r0["first_burst_batches"] < SERVE_BATCH:
+        raise RuntimeError(f"serve_mesh: the burst's requests shared no batch: {r0}")
+    # the model axis (data=1 x model=2): each rank holds its chunk of the
+    # weights and runs K2 on the whole batch, on the weights gathered once
+    m0, m1 = run_mesh_workers("serve_mesh", tmp, {
+        "serve_args": argv + ["trainer.model_axis=2"], "audio": str(tmp / "serve_mesh_audio.npz"),
+        "bodies": [], "rolls": "model_rolls.npz"})
+    if not (m0["launches"]["fused_sample"] == m0["batches"] and
+            m1["launches"]["fused_sample"] == m1["batches"] == m0["batches"] + 1):
+        raise RuntimeError(f"serve_mesh (model=2): K2 not once a batch on each rank: {m0} {m1}")
+    if not m0["param_bytes"] == m1["param_bytes"] < r0["param_bytes"]:
+        raise RuntimeError(f"serve_mesh (model=2): the ranks do not hold chunks: {m0} {m1}")
+    got = np.load(tmp / "serve_mesh" / "data_rolls.npz")
+    got_mp = np.load(tmp / "serve_mesh" / "model_rolls.npz")
+    svc, _, _ = cli_serve.make_service(argv)
+    try:
+        audio = np.load(tmp / "serve_mesh_audio.npz")
+        want = {k: svc.transcribe(audio[k]) for k in ("long", "short")}
+        batch_size = batch_size_dependence(svc.task, split_windows(long, seq, hop, overlap))
+    finally:
+        svc.close()
+    rows = {k: rel_err(torch.from_numpy(got[k]), torch.from_numpy(want[k]))[0] for k in want}
+    rows_mp = {k: rel_err(torch.from_numpy(got_mp[k]), torch.from_numpy(want[k]))[0]
+               for k in want}
+    if got_mp["long"].shape != want["long"].shape or not max(rows_mp.values()) < GATE:
+        raise RuntimeError(f"serve_mesh (model=2) rolls against one process: {rows_mp}")
+    stride = svc_frames - overlap   # each window's frames of the long request's stitched roll
+    windows = [rel_err(torch.from_numpy(got["long"][s: s + svc_frames]),
+                       torch.from_numpy(want["long"][s: s + svc_frames]))[0]
+               for s in range(0, stride * SERVE_BATCH, stride)]
+    if got["long"].shape != want["long"].shape or not max(rows.values()) < GATE:
+        raise RuntimeError(f"serve_mesh rolls against one process: {rows}")
+    phase("serve_mesh", seconds=time.perf_counter() - t0, ranks=2, data=2, backend="gloo",
+          max_batch=r0["max_batch"], rows_per_rank=r0["max_batch"] // 2,
+          rolls_vs_one_process={"rel": rows, "gate": GATE,
+                                "long_request_window_rel": windows},
+          one_process_b4_vs_b8=batch_size,
+          http_requests=SERVE_BATCH, frames=want_frames,
+          first_burst_batches=r0["first_burst_batches"],
+          windows_per_second={"2 ranks sharing one card: not a scaling figure":
+                              r0["load_requests"] / r0["load_seconds"]},
+          load_batches=r0["load_batches"], launches=r0["launches"],
+          launches_rank1=r1["launches"],
+          model_axis={"data": 1, "model": 2, "rolls_vs_one_process": {"rel": rows_mp,
+                                                                      "gate": GATE},
+                      "param_bytes_per_rank": m0["param_bytes"],
+                      "param_bytes_one_process": r0["param_bytes"],
+                      "launches": m0["launches"], "launches_rank1": m1["launches"]})
+    return {fn.__name__: r0["launches"].get(fn.__name__, 0) for fn in kernels}
+
+
+def batch_size_dependence(task, windows: np.ndarray) -> dict:
+    """One process, the long request's 8 windows (int16 PCM, as the service
+    sends them): the mel and K2's rolls of the even rows as a batch of 4
+    against the same rows of the batch of 8, on the same draws; each row's
+    rel error (what a stripe of the mesh service computes differently from
+    one process, whatever the mesh does)."""
+    from diffroll_tpu_torch.diffusion.loop import timestep_subsequence
+
+    dev = torch.device("cuda")
+    pcm = (np.clip(windows, -1.0, 1.0) * 32767.0).astype(np.int16)
+    wav = torch.from_numpy(pcm).to(dev).float() * (1.0 / 32768.0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    x_T = torch.randn((len(windows),) + (640, 88), generator=g, device=dev)
+    n = len(timestep_subsequence(task.config.timesteps, task.config.sampling_steps))
+    noise = torch.randn((n,) + tuple(x_T.shape), generator=g, device=dev)
+    with torch.no_grad():
+        mel8 = task.model.conditioner(waveform=wav)
+        mel4 = task.model.conditioner(waveform=wav[0::2])
+    b8 = task.sample(x_T, waveform=wav, noise=noise)[0]
+    b4 = task.sample(x_T[0::2], waveform=wav[0::2], noise=noise[:, 0::2])[0]
+    return {"mel_rows_rel": [rel_err(mel4[i], mel8[2 * i])[0] for i in range(len(mel4))],
+            "k2_rows_rel": [rel_err(b4[i], b8[2 * i])[0] for i in range(len(b4))]}
+
+
+def run_sp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, kernels) -> dict:
+    """Phase sp: sequence parallelism, data=2, two ranks sharing the one
+    card: the flagship's 640-frame window split 320 + 320 (halo at most 8):
+    the forward against the dense modules (rel < 1e-4, f32, TF32 off) and a
+    strided 20-step reverse process against the dense modules sampler on the
+    same draws (rel < 1e-3). No kernel launches. Returns rank 0's counts."""
+    t0 = time.perf_counter()
+    ranks = run_mesh_workers("sp", tmp, {"ckpt": str(ckpt)})
+    r0 = ranks[0]
+    if any(any(r["launches"].values()) for r in ranks):
+        raise RuntimeError(f"sp launched a kernel: {[r['launches'] for r in ranks]}")
+    if not (r0["forward_rel"] < SP_FORWARD_GATE and r0["sample_rel"] < SP_SAMPLE_GATE):
+        raise RuntimeError(f"sp against the dense modules: {r0}")
+    phase("sp", seconds=time.perf_counter() - t0, ranks=2, data=2, backend="gloo",
+          frames_per_rank=r0["frames_per_rank"], forward_rel=r0["forward_rel"],
+          forward_max_abs=r0["forward_max_abs"], forward_gate=SP_FORWARD_GATE,
+          sample_rel=r0["sample_rel"], sample_max_abs=r0["sample_max_abs"],
+          sample_gate=SP_SAMPLE_GATE, sample_steps=SP_STEPS,
+          forward_ms={"2 ranks sharing one card: not a scaling figure":
+                      [r["forward_ms"] for r in ranks]},
+          sample_seconds={"2 ranks sharing one card: not a scaling figure":
+                          [r["sample_seconds"] for r in ranks]},
+          launches=r0["launches"])
+    return {fn.__name__: r0["launches"].get(fn.__name__, 0) for fn in kernels}
 
 
 def main() -> int:
@@ -1579,6 +2077,9 @@ def main() -> int:
         run_variants_hold(dev)
         path_launches["bf16"] = run_bf16_phase(tmp, ckpt, all_kernels)
         path_launches.update(run_dp_phase(tmp, ckpt, last_ckpt, all_kernels))
+        path_launches.update(run_mp_phase(tmp, ckpt, all_kernels))
+        path_launches["serve_mesh"] = run_serve_mesh_phase(tmp, ckpt, all_kernels)
+        path_launches["sp"] = run_sp_phase(tmp, ckpt, all_kernels)
 
     net = model.net
     dil = mc.dilations()
@@ -1958,4 +2459,7 @@ if __name__ == "__main__":
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-worker"] and sys.argv[2] in MESH_PHASES:
+        sys.exit(mesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+                             sys.argv[6]))
     sys.exit(main())

@@ -27,8 +27,10 @@ Commands:
 
 Every command takes `config=<file>.yaml` (its keys layered under the CLI's).
 Under `torchrun --nproc_per_node=N -m diffroll_tpu_torch <command> ...`
-train, distill, test, sweep and transcribe run over N ranks (the data axis,
-`trainer.data_axis`); the group they start is closed when the command ends.
+train, distill, test, sweep, transcribe and serve run over N ranks (the
+(data, model) mesh: `trainer.model_axis=M` ranks share each parameter in
+train, distill and serve, N / M data stripes); the group they start is
+closed when the command ends.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (counterpart of `diffroll_tpu/cli/_common.py`):
-dataset / loader / model construction, the data axis, run dirs, checkpoint
+dataset / loader / model construction, the mesh, run dirs, checkpoint
 load-with-override."""
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ from ..data.amt import MAESTRO, MAPS
 from ..data.custom import Custom
 from ..data.pipeline import DataLoader
 from ..models.base import DiffRollModel
-from ..parallel.mesh import DataMesh
+from ..parallel.mesh import Mesh
 from ..parallel.mesh import setup_mesh as _setup_mesh
+from ..parallel.model_axis import shard_module
 from ..tasks.baseline import BaselineTask
 from ..tasks.diffusion import DiffusionTask, TaskConfig
 from ..train.state import TrainState
@@ -34,15 +35,18 @@ def resolve_device(cfg: ExperimentConfig) -> torch.device:
     return device
 
 
-def setup_mesh(cfg: ExperimentConfig) -> Tuple[Optional[DataMesh], torch.device]:
-    """The data axis (parallel/mesh.py; None outside a launched group) and
-    this process's device: the rank's card under a mesh on CUDA."""
+def setup_mesh(cfg: ExperimentConfig,
+               train: bool = False) -> Tuple[Optional[Mesh], torch.device]:
+    """The (data, model) mesh (parallel/mesh.py; None outside a launched
+    group) and this process's device: the rank's card under a mesh on CUDA.
+    A training entry (`train`) has its train batch checked against the data
+    axis; the others ignore it."""
     device = resolve_device(cfg)
-    mesh = _setup_mesh(cfg, device)
+    mesh = _setup_mesh(cfg, device, train)
     return mesh, (device if mesh is None else mesh.device)
 
 
-def is_main(mesh: Optional[DataMesh]) -> bool:
+def is_main(mesh: Optional[Mesh]) -> bool:
     """Whether this process writes files: the only one, or rank 0."""
     return mesh is None or mesh.is_main
 
@@ -75,11 +79,11 @@ def build_dataset(ds: DatasetConfig, split: str):
 
 
 def build_loader(cfg: ExperimentConfig, dataset, split: str,
-                 mesh: Optional[DataMesh] = None) -> DataLoader:
-    """The split's loader; with `mesh` each rank reads its stripe of every
-    global batch (`process_index` = rank, `process_count` = size), and the
-    train split drops a short last batch, whose stripes could not all
-    step."""
+                 mesh: Optional[Mesh] = None) -> DataLoader:
+    """The split's loader; with `mesh` each rank reads its data stripe of
+    every global batch (`process_index` = its data index, `process_count` =
+    the data axis's size), and the train split drops a short last batch,
+    whose stripes could not all step."""
     dl = cfg.dataloader
     bs = {"train": dl.train_batch_size, "validation": dl.val_batch_size,
           "test": dl.test_batch_size}[split]
@@ -89,8 +93,8 @@ def build_loader(cfg: ExperimentConfig, dataset, split: str,
         drop_last=(dl.drop_last or mesh is not None) and split == "train",
         num_workers=dl.num_workers, prefetch=dl.prefetch,
         seed=cfg.trainer.seed,
-        process_index=0 if mesh is None else mesh.rank,
-        process_count=1 if mesh is None else mesh.size,
+        process_index=0 if mesh is None else mesh.data_index,
+        process_count=1 if mesh is None else mesh.data,
     )
 
 
@@ -123,7 +127,7 @@ def make_run_dir(cfg: ExperimentConfig, kind: str) -> pathlib.Path:
 
 
 def setup_model_task(cfg: ExperimentConfig, device,
-                     mesh: Optional[DataMesh] = None) -> Tuple[DiffRollModel, Any]:
+                     mesh: Optional[Mesh] = None) -> Tuple[DiffRollModel, Any]:
     """The model on `device` and its task: a `DiffusionTask` (drawing the
     global batch's draws under `mesh`), or a `BaselineTask` for
     task_type=baseline."""
@@ -139,6 +143,14 @@ def new_train_state(cfg: ExperimentConfig, model: DiffRollModel) -> TrainState:
                              seed=cfg.trainer.seed)
 
 
+def shard_model(model: DiffRollModel, mesh: Optional[Mesh], optimizer=None) -> None:
+    """Under a model axis (`train`, `distill`, `serve`), keep this rank's
+    chunk of every parameter the JAX rule shards, with its slice of the
+    optimizer's state; nothing otherwise."""
+    if mesh is not None and mesh.model > 1:
+        shard_module(model.net, mesh, optimizer)
+
+
 def config_record(cfg: ExperimentConfig) -> Dict[str, Any]:
     return {"model_name": cfg.model_name, "model": cfg.model, "task": cfg.task,
             "task_type": cfg.task_type, "baseline": cfg.baseline}
@@ -149,7 +161,7 @@ def load_pretrained(
     prefer_ema: bool = True,
     overrides: Optional[Dict[str, Any]] = None,
     device: Optional[torch.device] = None,
-    mesh: Optional[DataMesh] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[ExperimentConfig, DiffRollModel, Any, TrainState]:
     """Restore a checkpoint with the reference's "reload weights, override
     hparams" semantic. The stored model config wins for architecture and the

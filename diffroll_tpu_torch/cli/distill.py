@@ -22,7 +22,10 @@ sampler (`ddim_x0`, n steps, w=0), which `test` and `serve` read:
 
 Under torchrun the student's step is data-parallel over the ranks (each its
 stripe of every global batch, the teacher replicated), and rank 0 alone
-logs and writes the stage checkpoints.
+logs and writes the stage checkpoints. With `trainer.model_axis=M` the
+teacher and each student keep their chunks (K1 reads the teacher's whole
+weights, gathered once a stage; K3 + K4 the student's, once a step), and
+the stage checkpoints are whole.
 """
 
 from __future__ import annotations
@@ -33,16 +36,18 @@ from typing import Any, Dict, List, Optional
 
 from ..config import from_argv
 from ..train import Checkpointer, TrainState
+from ..train.checkpoint import whole_state
 from ..train.distill import progressive_distill
 from . import _common
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     cfg, _, overrides = from_argv(sys.argv[1:] if argv is None else argv, "spec_roll")
-    mesh, device = _common.setup_mesh(cfg)
+    mesh, device = _common.setup_mesh(cfg, train=True)
     main_rank = _common.is_main(mesh)
     cfg, model, _, _ = _common.load_pretrained(cfg, prefer_ema=True, overrides=overrides,
                                                device=device)
+    _common.shard_model(model, mesh)
     if cfg.task_type != "diffusion":
         raise SystemExit(f"distill needs a diffusion checkpoint; {cfg.pretrained_path} "
                          f"holds a {cfg.task_type!r} model")
@@ -72,16 +77,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         log=(lambda msg: print(msg, file=sys.stderr)) if main_rank else None, mesh=mesh)
     summary = {"run_dir": str(run_dir), "stages": sorted(students, reverse=True),
                "eval_with": "task.sampling_type=ddim_x0 task.sampling_steps=<n> task.w=0"}
-    if not main_rank:
-        return summary
-
     for n, student in students.items():
         # a distilled model samples unguided (guidance is folded in) on the
-        # deterministic grid it was trained for
+        # deterministic grid it was trained for; a sharded student's whole
+        # weights are gathered by every rank
+        state = TrainState.create(student, cfg.distill.lr)
+        whole = whole_state(state)
+        if not main_rank:
+            continue
         stage_cfg = cfg.replace(task=cfg.task.replace(
             sampling_type="ddim_x0", sampling_steps=n, w=0.0))
         Checkpointer(run_dir / f"distilled_{n}steps" / "checkpoints").save_last(
-            TrainState.create(student, cfg.distill.lr), config=_common.config_record(stage_cfg))
+            state, config=_common.config_record(stage_cfg), whole=whole)
+    if not main_rank:
+        return summary
     print(json.dumps(summary))
     return summary
 

@@ -7,6 +7,16 @@
 POST WAV bytes to /transcribe (-> JSON note events; ?midi=1 for a MIDI
 file), GET /healthz for liveness. Windows from concurrent requests are
 micro-batched into one sampler batch shape (diffroll_tpu_torch/serve/).
+
+Over several cards, one process a card:
+
+    torchrun --nproc_per_node=2 -m diffroll_tpu_torch serve \
+        pretrained_path=<file.ckpt> serve.max_batch=8
+
+rank 0 answers HTTP and each batch's windows are striped over the data
+axis (`max_batch` rounded down to a multiple of it); with
+`trainer.model_axis=M` each rank keeps its chunk of the weights and the
+sampler reads them whole, gathered once.
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ from . import _common
 
 
 def make_service(argv: List[str]):
-    """The warmed-up service and its config and info, as `main` serves them."""
+    """The warmed-up service and its config and info, as `main` serves them.
+    Over a mesh, rank 0's is warmed up once the other ranks `follow`."""
     cfg, _, overrides = from_argv(argv, "sampling")
-    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides)
+    mesh, device = _common.setup_mesh(cfg)
+    cfg, model, task, _ = _common.load_pretrained(cfg, overrides=overrides, device=device)
+    _common.shard_model(model, mesh)
 
     # the service is self-contained: the sampler identity and grid that a
     # checkpoint the port trained recorded win over the preset (a distilled
@@ -44,9 +57,10 @@ def make_service(argv: List[str]):
         task, max_batch=sv.max_batch, max_wait_ms=sv.max_wait_ms,
         overlap_frames=sv.overlap_frames, max_body_mb=sv.max_body_mb,
         frame_threshold=_common.task_threshold(cfg), seed=cfg.trainer.seed,
-        transfer_dtype=sv.transfer, pipeline_depth=sv.pipeline_depth)
-    print("warming up the sampler...", file=sys.stderr)
-    service.warmup()
+        transfer_dtype=sv.transfer, pipeline_depth=sv.pipeline_depth, mesh=mesh)
+    if service.leads:   # the other ranks take part in the warm-up in `follow`
+        print("warming up the sampler...", file=sys.stderr)
+        service.warmup()
     info = {"model": cfg.model_name, "sampler": cfg.task.sampling_type,
             "steps": cfg.task.sampling_steps or cfg.task.timesteps,
             "max_batch": service.max_batch, "device": str(model.device)}
@@ -57,6 +71,9 @@ def main(argv: Optional[List[str]] = None):
     from ..serve import serve_forever
 
     service, cfg, info = make_service(sys.argv[1:] if argv is None else argv)
+    if not service.leads:
+        service.follow()   # until rank 0 stops
+        return
     sv = cfg.serve
     print(json.dumps({"serving": f"http://{sv.host}:{sv.port}", **info}),
           file=sys.stderr, flush=True)

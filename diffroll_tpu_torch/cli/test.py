@@ -12,7 +12,9 @@ MIDI and audio, into outputs/<date>/<time>/test-<run name>.
 
 Over the data axis (`torchrun --nproc_per_node=N ... test ...`) each rank
 samples its stripe of every test batch, rank 0 gathers the rolls, scores
-them and alone writes; every rank returns the same metrics.
+them and alone writes; every rank returns the same metrics. Under a model
+axis (`trainer.model_axis=M`) the ranks of one data index sample the same
+stripe, each on the whole weights.
 """
 
 from __future__ import annotations

@@ -32,7 +32,14 @@ axis, one process per GPU:
 
 each rank steps on its stripe of every global batch of
 `dataloader.train_batch_size` with the gradients averaged, and only rank 0
-writes the logs, figures, checkpoints and the test metrics.
+writes the logs, figures, checkpoints and the test metrics. With
+`trainer.model_axis=M` (N / M data stripes) each rank keeps its chunk of
+every parameter whose output channels divide by M, with its Adam moments
+and EMA; the products are column-parallel, K3 + K4 take the whole weights
+gathered once a step, and the checkpoints are whole:
+
+    torchrun --nproc_per_node=4 -m diffroll_tpu_torch train spec_roll \
+        dataset.root=/data trainer.model_axis=2 task.fused_train=true
 """
 
 from __future__ import annotations
@@ -45,17 +52,20 @@ import torch
 
 from ..config import asdict_flat, from_argv
 from ..data.custom import DoubleDataset
+from ..parallel.model_axis import full_tensors, full_view, is_sharded
 from ..train import Checkpointer, TrainState, fit
 from ..utils.logging import MetricLogger
 from . import _common
 from .test import run_test
 
 
-def make_val_hook(task, logger: MetricLogger):
+def make_val_hook(task, logger: Optional[MetricLogger]):
     """`fit`'s hook on the first validation batch: the one-step prediction
     beside the labels and the conditioner (`roll_figure`), and the heatmaps
     of the learned conditioning where the net has any (`param_heatmaps`),
-    saved as PNGs. Its draws come from a generator of its own (seed 0)."""
+    saved as PNGs. Its draws come from a generator of its own (seed 0). A
+    model-sharded net reads whole inside (`full_view`), which every rank
+    enters; a rank without `logger` draws no figure."""
     warned = False
 
     def val_hook(state, batch):
@@ -63,22 +73,24 @@ def make_val_hook(task, logger: MetricLogger):
         try:
             import matplotlib  # noqa: F401
         except ImportError:
-            if not warned:
+            if not warned and logger is not None:
                 print("train: matplotlib is not installed; no validation figures",
                       file=sys.stderr)
-                warned = True
+            warned = True
             return {}
         from ..viz import param_heatmaps, roll_figure
         from ..viz.figures import _mpl
 
         gen = torch.Generator(device=state.model.device).manual_seed(0)
-        with torch.no_grad():
+        with torch.no_grad(), full_view(state.model.net) as net:
+            if logger is None:
+                return {}
             _, (_, tensors) = task.loss_fn(batch, gen, False)
-        spec = tensors.get("spec")
-        figs = {"val/rolls": roll_figure(tensors["pred_roll"].cpu().numpy(),
-                                         tensors["label_roll"].cpu().numpy(),
-                                         None if spec is None else spec.cpu().numpy()),
-                "val/trainable_params": param_heatmaps(state.model.net)}
+            spec = tensors.get("spec")
+            figs = {"val/rolls": roll_figure(tensors["pred_roll"].cpu().numpy(),
+                                             tensors["label_roll"].cpu().numpy(),
+                                             None if spec is None else spec.cpu().numpy()),
+                    "val/trainable_params": param_heatmaps(net)}
         for tag, fig in figs.items():
             if fig is not None:
                 logger.log_figure(state.step, tag, fig)
@@ -91,7 +103,7 @@ def make_val_hook(task, logger: MetricLogger):
 def main(argv: Optional[List[str]] = None) -> TrainState:
     cfg, rest, overrides = from_argv(sys.argv[1:] if argv is None else argv, "spec_roll")
     dual = cfg.dual or "dual" in rest or cfg.dataset2 is not None
-    mesh, device = _common.setup_mesh(cfg)
+    mesh, device = _common.setup_mesh(cfg, train=True)
     main_rank = _common.is_main(mesh)
 
     if cfg.pretrained_path:
@@ -102,6 +114,7 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
         torch.manual_seed(cfg.trainer.seed)  # the weight init
         model, task = _common.setup_model_task(cfg, device, mesh)
         state = _common.new_train_state(cfg, model)
+    _common.shard_model(model, mesh, state.optimizer)
 
     if dual and cfg.dataset2 is None:
         # the reference's defaults: MAPS + MAESTRO
@@ -129,16 +142,21 @@ def main(argv: Optional[List[str]] = None) -> TrainState:
         logger.log_config(asdict_flat(cfg))
         ckpt = Checkpointer(run_dir / "checkpoints", max_to_keep=cfg.trainer.save_top_k)
         print(f"run dir: {run_dir}", file=sys.stderr)
+    sharded = is_sharded(model.net)
     state = fit(task, state, train_loader, trainer=cfg.trainer, val_loader=val_loader,
                 checkpointer=ckpt, logger=logger, config_record=_common.config_record(cfg),
-                val_hook=make_val_hook(task, logger) if main_rank else None, mesh=mesh)
+                val_hook=make_val_hook(task, logger) if main_rank or sharded else None,
+                mesh=mesh)
 
     # the test split, on what `test pretrained_path=<last.ckpt>` loads: the
-    # EMA weights when the run kept them (the returned state keeps the raw ones)
+    # EMA weights when the run kept them (the returned state keeps the raw
+    # ones), whole on every rank (a sharded net's gathered)
     eval_model, eval_task = model, task
-    if state.ema is not None:
+    if state.ema is not None or sharded:
+        weights = state.ema if state.ema is not None else {
+            n: p.detach() for n, p in model.net.named_parameters()}
         eval_model, eval_task = _common.setup_model_task(cfg, device, mesh)
-        eval_model.net.load_state_dict(state.ema)
+        eval_model.net.load_state_dict(full_tensors(model.net, weights))
     try:
         metrics = run_test(cfg, eval_model, eval_task)
         if main_rank:

@@ -7,6 +7,7 @@ from .torch_ckpt import (
     peek_hparams,
     plain_hparams,
     read_ckpt,
+    param_sharding,
     state_dict_from_jax,
     task_config_from_hparams,
     task_updates_from_hparams,
@@ -21,6 +22,7 @@ __all__ = [
     "peek_hparams",
     "plain_hparams",
     "read_ckpt",
+    "param_sharding",
     "state_dict_from_jax",
     "task_config_from_hparams",
     "task_updates_from_hparams",

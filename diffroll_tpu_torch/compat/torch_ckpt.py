@@ -16,7 +16,7 @@ variant: kernel (K, I, O) -> (O, I, K), Dense (I, O) -> (O, I), 4-D kernels
 to the 2-D nets' layouts. For the 1-D nets it is the inverse of the JAX
 package's `convert_state_dict`; for the 2-D DiffRoll net it is not, since
 that function reads a reference (O, I, k88, kT) kernel as (kT, k88, I, O)
-(see `_kernel`). The U-Nets have no reference checkpoint: their names follow
+(see `_layout`). The U-Nets have no reference checkpoint: their names follow
 the flax scopes. Gradients are the
 same tree as the params, so `grads_from_jax` carries them the same way, and
 `adam_state_from_optax` carries `optax.adam`'s mu / nu / count into
@@ -306,24 +306,36 @@ def _unet_segment(seg: str) -> str:
     return {"Conv": "conv", "GroupNorm": "norm", "Dense": "linear"}[m[1]] + str(int(m[2]) + 1)
 
 
-def _kernel(a: np.ndarray, unet: bool, transposed: bool) -> np.ndarray:
-    """A flax kernel in the port's weight layout."""
-    if a.ndim == 2:      # Dense (I, O) -> Linear (O, I)
-        return a.transpose(1, 0)
-    if a.ndim == 3:      # Conv1d (K, I, O) -> (O, I, K)
-        return a.transpose(2, 1, 0)
-    if transposed:       # flax ConvTranspose (kT, k88, I, O) -> (I, O, kT, k88), flipped
-        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-    if unet:             # (kT, k88, I, O) on (B, T, 88, C) -> (O, I, kT, k88) on (B, C, T, 88)
-        return a.transpose(3, 2, 0, 1)
+def _layout(leaf: str, ndim: int, scope: str, unet: bool) -> Tuple[Tuple[int, ...], bool]:
+    """The layout map: the axes a flax leaf (`kernel`, `scale`, `bias`,
+    `uncon_z`, `trainable_parameters`) of `ndim` dims in module `scope` is
+    transposed by into the port's layout, and whether its two spatial axes
+    are then flipped."""
+    if leaf in ("trainable_parameters", "uncon_z"):
+        return (1, 0), False        # (frames, width) -> the reference's (width, frames)
+    if leaf in ("bias", "scale") or ndim == 1:
+        return (0,), False
+    if ndim == 2:                   # Dense (I, O) -> Linear (O, I)
+        return (1, 0), False
+    if ndim == 3:                   # Conv1d (K, I, O) -> (O, I, K)
+        return (2, 1, 0), False
+    if scope.startswith("ConvTranspose_"):
+        # DiffWave's upsampler: flax (kT, k_mel, I, O) -> the reference's
+        # ConvTranspose2d (I, O, k_mel, kT) over (B, 1, n_mels, T), flipped
+        return (2, 3, 1, 0), True
+    if unet and scope.endswith("_us"):
+        # flax ConvTranspose (kT, k88, I, O) -> (I, O, kT, k88), flipped
+        return (2, 3, 0, 1), True
+    if unet:                        # (kT, k88, I, O) on (B, T, 88, C) -> (O, I, kT, k88)
+        return (3, 2, 0, 1), False
     # the 2-D DiffRoll net: (kT, k88, I, O) -> the reference's (O, I, k88, kT)
     # on (B, C, 88, T); both spatial axes swap
-    return a.transpose(3, 2, 1, 0)
+    return (3, 2, 1, 0), False
 
 
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX params ({'params': tree} or the tree) -> port state_dict, for every
-    variant. Kernels go to the port's layouts (`_kernel`), GroupNorm `scale`
+    variant. Kernels go to the port's layouts (`_layout`), GroupNorm `scale`
     to `weight`, and the learned unconditional embeddings to the reference's
     (width, frames): `trainable_parameters` (n_mels, spec_frames) and each
     block's `uncon_z` (2C, frames). DiffWave's params (`nn/diffwave.py`)
@@ -340,23 +352,39 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             scopes = [_unet_segment(s) for s in scopes]
         else:
             scopes = [s.replace("residual_layers_", "residual_layers.") for s in scopes]
-        if leaf in ("trainable_parameters", "uncon_z"):
-            name, a = ".".join(scopes + [leaf]), a.transpose(1, 0)
-        elif leaf == "bias":
-            name = ".".join(scopes + ["bias"])
-        elif leaf == "scale":
-            name = ".".join(scopes + ["weight"])
-        elif leaf == "kernel" and scopes[-1].startswith("ConvTranspose_"):
-            # DiffWave's upsampler: flax (kT, k_mel, I, O) -> the reference's
-            # ConvTranspose2d (I, O, k_mel, kT) over (B, 1, n_mels, T), flipped
-            name = ".".join(scopes + ["weight"])
-            a = a.transpose(2, 3, 1, 0)[:, :, ::-1, ::-1]
-        elif leaf == "kernel":
-            name = ".".join(scopes + ["weight"])
-            a = _kernel(a, unet, transposed=unet and scopes[-1].endswith("_us"))
-        else:
+        if leaf not in ("kernel", "scale", "bias", "trainable_parameters", "uncon_z"):
             raise ValueError(f"unexpected leaf {'/'.join(path)} of shape {a.shape}")
+        axes, flip = _layout(leaf, a.ndim, scopes[-1] if scopes else "", unet)
+        a = a.transpose(axes)
+        if flip:
+            a = a[:, :, ::-1, ::-1]
+        name = ".".join(scopes + [{"kernel": "weight", "scale": "weight"}.get(leaf, leaf)])
         out[name] = torch.from_numpy(np.array(a, order="C"))
+    return out
+
+
+def param_sharding(net: torch.nn.Module, model: int) -> Dict[str, int]:
+    """The JAX package's sharding rule (`parallel/mesh.py::param_sharding`)
+    on the port's parameters: {name: the dim carrying the model axis} for
+    every parameter of `net` sharded over a model axis of `model`. A
+    parameter is sharded iff its flax leaf's trailing (output-channel)
+    dimension divides `model`; which torch dim that is comes from the layout
+    map `state_dict_from_jax` converts by (dim 0 for Linear, Conv1d and
+    Conv2d weights, biases, norm scales, `uncon_z` and
+    `trainable_parameters`; dim 1 for ConvTranspose2d weights)."""
+    if model <= 1:
+        return {}
+    unet = hasattr(net, "init_conv")
+    out: Dict[str, int] = {}
+    for mname, mod in net.named_modules():
+        scope = mname.rpartition(".")[2]
+        for leaf, p in mod.named_parameters(recurse=False):
+            flax_leaf = {"weight": "scale" if isinstance(mod, torch.nn.GroupNorm) else "kernel"
+                         }.get(leaf, leaf)
+            axes, _ = _layout(flax_leaf, p.ndim, scope, unet)
+            dim = axes.index(p.ndim - 1)
+            if p.shape[dim] % model == 0:
+                out[f"{mname}.{leaf}" if mname else leaf] = dim
     return out
 
 

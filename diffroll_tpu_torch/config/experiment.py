@@ -80,10 +80,12 @@ class TrainerConfig:
     output_dir: str = "outputs"
     run_name: Optional[str] = None            # default: auto from hparams
     seed: int = 0
-    # the data axis (parallel/mesh.py): None = the world size of the launched
-    # group (torchrun --nproc_per_node=N), 1 process otherwise; any other
-    # value must equal the world size, and the train batch must divide by
-    # it. model_axis > 1 (tensor parallelism) is not ported and raises.
+    # the (data, model) mesh (parallel/mesh.py): model_axis ranks share each
+    # parameter whose output channels divide by it (parallel/model_axis.py);
+    # data_axis None = the world size of the launched group (torchrun
+    # --nproc_per_node=N) // model_axis, 1 process otherwise; any other
+    # value times model_axis must equal the world size, and in the training
+    # entries the train batch must divide by the data axis.
     model_axis: int = 1
     data_axis: Optional[int] = None
     log_every_n_steps: int = 50

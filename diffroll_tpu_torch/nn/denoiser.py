@@ -28,11 +28,12 @@ bf16 too, so it is not used. The 2-D net stays f32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..parallel.model_axis import full_param
 from .embedding import DiffusionEmbedding
 from .resblock import ResidualBlock, ResidualBlock2D, conv1d, conv2d, pointwise
 
@@ -83,7 +84,7 @@ class DiffRollNet(nn.Module):
                 cond = torch.where(uncond_mask[:, None, None],
                                    torch.full_like(cond, -1.0), cond)
             elif self.condition == "trainable_spec":
-                sub = self.trainable_parameters[:, : cond.shape[1]].t()
+                sub = full_param(self, "trainable_parameters")[:, : cond.shape[1]].t()
                 cond = torch.where(uncond_mask[:, None, None], sub[None], cond)
         z_mask = uncond_mask if self.condition == "trainable_z" else None
         return tuple(block.cond_proj(cond, z_mask) for block in self.residual_layers)
@@ -92,8 +93,11 @@ class DiffRollNet(nn.Module):
                 cond: Optional[torch.Tensor] = None,
                 uncond_mask: Optional[torch.Tensor] = None,
                 cond_proj: Optional[Sequence[torch.Tensor]] = None,
+                layer: Optional[Callable] = None,
                 ) -> torch.Tensor:
-        """x_t (B, T, 88), t (B,), cond (B, T, n_cond) or None -> (B, T, 88)."""
+        """x_t (B, T, 88), t (B,), cond (B, T, n_cond) or None -> (B, T, 88).
+        `layer(block, x, t_emb, cond_proj)`, where given, runs each block in
+        its stead (sequence parallelism runs it over a halo)."""
         conditional = not self.unconditional and (
             cond is not None or cond_proj is not None)
         if conditional and cond_proj is None:
@@ -103,7 +107,8 @@ class DiffRollNet(nn.Module):
         t_emb = self.diffusion_embedding(t)
         skip_sum = None
         for i, block in enumerate(self.residual_layers):
-            x, skip = block(x, t_emb, cond_proj[i] if conditional else None)
+            args = (x, t_emb, cond_proj[i] if conditional else None)
+            x, skip = block(*args) if layer is None else layer(block, *args)
             skip_sum = skip if skip_sum is None else skip_sum + skip
         x = skip_sum / math.sqrt(len(self.residual_layers))
         x = torch.relu(pointwise(x, self.skip_projection, self.dtype))

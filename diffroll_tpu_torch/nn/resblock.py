@@ -16,6 +16,10 @@ its convs and its Linear casts input, weight and bias to bf16 by hand and
 returns bf16, while the parameters stay f32 (no autocast: the net's head
 must stay f32, see nn/denoiser.py). Ops between them promote as jnp does: a
 bf16 sum stays bf16, a bf16 + f32 one is f32.
+
+Under a model axis (parallel/model_axis.py) the products the 1-D block
+computes functionally go through `column` and `uncon_z` through
+`full_param`; on a whole net both are the plain reads.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.model_axis import column, full_param
 
 SQRT_HALF = 0.7071067811865476
 
@@ -57,7 +63,7 @@ def pointwise(x: torch.Tensor, conv: nn.Conv1d,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A 1x1 Conv1d applied to a channels-last (B, T, I) tensor, computed in
     `dtype` where given."""
-    return F.linear(*_cast(dtype, x, conv.weight[:, :, 0], conv.bias))
+    return column(conv, x, lambda v, w, b: F.linear(*_cast(dtype, v, w[:, :, 0], b)), -1)
 
 
 class ResidualBlock(nn.Module):
@@ -92,7 +98,7 @@ class ResidualBlock(nn.Module):
         `uncond_mask` is set take `uncon_z` (its first T frames) instead."""
         proj = pointwise(cond, self.conditioner_projection, self.dtype)
         if self.trainable_z and uncond_mask is not None:
-            z = self.uncon_z[:, : cond.shape[1]].t()
+            z = full_param(self, "uncon_z")[:, : cond.shape[1]].t()
             proj = torch.where(uncond_mask[:, None, None], z[None], proj)
         return proj
 
@@ -100,9 +106,10 @@ class ResidualBlock(nn.Module):
                 cond_proj: Optional[torch.Tensor] = None):
         dt = self.dtype
         lin, conv = self.diffusion_projection, self.dilated_conv
-        step = F.linear(*_cast(dt, t_emb, lin.weight, lin.bias))
-        y = F.conv1d(*_cast(dt, (x + step[:, None, :]).transpose(1, 2), conv.weight, conv.bias),
-                     padding=conv.padding, dilation=conv.dilation).transpose(1, 2)
+        step = column(lin, t_emb, lambda v, w, b: F.linear(*_cast(dt, v, w, b)), -1)
+        y = column(conv, (x + step[:, None, :]).transpose(1, 2),
+                   lambda v, w, b: F.conv1d(*_cast(dt, v, w, b), padding=conv.padding,
+                                            dilation=conv.dilation), 1).transpose(1, 2)
         # the elementwise chains run in f32 and round once, at the next conv
         # or the block's outputs, as XLA keeps excess precision inside a
         # fusion (every `.float()` / `.to` is a no-op on the f32 path)

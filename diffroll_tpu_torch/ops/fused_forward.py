@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..nn.embedding import lookup
 from ..nn.resblock import pointwise
+from ..parallel.model_axis import column
 from .gated_stack import (
     COND_PAD, GatedStackWeights, KernelWeights, gated_stack, kernel_weights, stack_weights)
 from .gated_stack_grad import gated_stack_trainable
@@ -50,10 +51,11 @@ def head_weights(net) -> HeadWeights:
 
 
 def _embed(t: torch.Tensor, emb) -> torch.Tensor:
-    """DiffusionEmbedding's forward (table lookup/lerp + two SiLU linears)."""
+    """DiffusionEmbedding's forward (table lookup/lerp + two SiLU linears;
+    column-parallel under a model axis)."""
     e = lookup(emb.embedding, t)
-    e = F.silu(F.linear(e, emb.projection1.weight, emb.projection1.bias))
-    return F.silu(F.linear(e, emb.projection2.weight, emb.projection2.bias))
+    e = F.silu(column(emb.projection1, e, F.linear, -1))
+    return F.silu(column(emb.projection2, e, F.linear, -1))
 
 
 def time_bias(t_emb: torch.Tensor, w: GatedStackWeights) -> torch.Tensor:

@@ -11,10 +11,11 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..diffusion.loop import timestep_subsequence
 from ..diffusion.samplers import SAMPLER_TABLE
@@ -65,14 +66,28 @@ class TranscriptionService:
     `max_batch` windows, short batches zero-padded, so the card always runs
     the same shapes. On a CUDA model the reverse process is the
     whole-process sampler (K2).
+
+    Over a mesh (`mesh`, parallel/mesh.py; one process a card under
+    torchrun) `max_batch` is rounded down to a multiple of the data axis.
+    Rank 0 alone keeps the HTTP front, the queue and the threads; for each
+    batch its dispatcher broadcasts a header (the batch's rows, a stop flag)
+    and the waveform batch, every rank draws the global batch's x_T and
+    noise from the service generator (the same draws in the same order,
+    the warm-up's included), samples its data stripe (K2 once a batch on
+    each rank) and the rolls are gathered over the mesh. The other ranks
+    run `follow` until rank 0 broadcasts stop (`close`). A batch's
+    collectives are issued by one thread on each rank, in batch order. A
+    model-sharded net samples from its whole weights, gathered once
+    (`DiffusionTask._fused_weights`), or column-parallel on the modules.
     """
 
     def __init__(self, task, *, max_batch: int = 8, max_wait_ms: float = 25.0,
                  overlap_frames: int = 32, frame_threshold: float = 0.5, seed: int = 0,
                  max_body_mb: float = 64.0, max_queued_windows: int = 256,
                  transfer_dtype: str = "float32", pipeline_depth: int = 2,
-                 detailed_timing: bool = False):
+                 detailed_timing: bool = False, mesh=None):
         self.task = task
+        self.mesh = mesh
         mc = task.model.config
         self.device = task.model.device
         self.frames = mc.frames
@@ -80,6 +95,8 @@ class TranscriptionService:
         self.sample_rate = mc.mel.sample_rate
         self.seq_len = self.frames * self.hop
         self.pitches = mc.pitches
+        if mesh is not None:
+            max_batch = max(max_batch // mesh.data, 1) * mesh.data
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         self.overlap_frames = overlap_frames
@@ -124,20 +141,69 @@ class TranscriptionService:
         self._completer = threading.Thread(target=self._completion_loop, daemon=True)
         self.stats = {"requests": 0, "windows": 0, "batches": 0, "audio_seconds": 0.0}
         self._stats_lock = threading.Lock()
-        self._worker.start()
-        self._completer.start()
+        if self.leads:
+            self._worker.start()
+            self._completer.start()
+
+    @property
+    def leads(self) -> bool:
+        """Whether this process takes the requests: the only one, or rank 0."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _share(self, wav: torch.Tensor, rows: int) -> torch.Tensor:
+        """Rank 0 of a mesh: broadcast the batch's header and its waveforms
+        (as f32: NCCL moves no int16) before running it; returns them."""
+        if self.mesh is None:
+            return wav
+        if wav.dtype == torch.int16:
+            wav = wav.float() * (1.0 / 32768.0)
+        self._broadcast_header(rows, stop=False)
+        dist.broadcast(wav, src=0)
+        return wav
 
     def _run(self, wav: torch.Tensor) -> torch.Tensor:
         """The batch's reverse process: (max_batch, seq_len) waveforms on the
-        device (f32, or int16 PCM) -> (max_batch, frames, 88) rolls there."""
+        device (f32, or int16 PCM) -> (max_batch, frames, 88) rolls there;
+        over a mesh, this rank's data stripe, the rolls gathered."""
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
+        mesh = self.mesh
         shape = (self.max_batch, self.frames, self.pitches)
         with self._generator_lock:
             x_T = torch.randn(shape, generator=self._generator, device=self.device)
             noise = (torch.randn((self._steps,) + shape, generator=self._generator,
                                  device=self.device) if self._stochastic else None)
-        return self.task.sample(x_T, waveform=wav, noise=noise)[0]
+        if mesh is None:
+            return self.task.sample(x_T, waveform=wav, noise=noise)[0]
+        st = mesh.stripe
+        part = self.task.sample(st(x_T), waveform=st(wav),
+                                noise=None if noise is None
+                                else noise[:, mesh.data_index::mesh.data])[0]
+        return mesh.gather_stripes(part, self.max_batch)
+
+    def _broadcast_header(self, rows: int, stop: bool) -> Tuple[int, bool]:
+        """Rank 0's (rows, stop) on every rank of the mesh."""
+        hdr = torch.tensor([rows, int(stop)], dtype=torch.int64, device=self.device)
+        dist.broadcast(hdr, src=0)
+        rows, stop = hdr.tolist()
+        return rows, bool(stop)
+
+    def follow(self) -> None:
+        """A rank other than 0 of a mesh: take part in every batch rank 0
+        issues, until it broadcasts stop."""
+        if self.leads:
+            raise RuntimeError("rank 0 leads the service; `follow` is for the other ranks")
+        with self._device_stream():
+            while True:
+                _, stop = self._broadcast_header(0, False)
+                if stop:
+                    break
+                wav = torch.empty((self.max_batch, self.seq_len), device=self.device)
+                dist.broadcast(wav, src=0)
+                self._run(wav)
+                self._wait_device()
+                with self._stats_lock:
+                    self.stats["batches"] += 1
 
     # ---------------------------------------------------------------- warmup
 
@@ -197,13 +263,25 @@ class TranscriptionService:
                 for p, (i0, i1) in zip(pitches, intervals)]
 
     def close(self):
+        """Stop the threads; over a mesh rank 0's dispatcher first tells the
+        other ranks to stop."""
         self._stop.set()
-        self._worker.join(timeout=5)
-        self._completer.join(timeout=5)
+        if self.leads:
+            self._worker.join(timeout=60 if self.mesh is not None else 5)
+            self._completer.join(timeout=5)
 
     # ------------------------------------------------------------ dispatcher
 
     def _dispatch_loop(self):
+        try:
+            self._dispatch()
+        finally:
+            if self.mesh is not None:
+                # from the thread that issues every batch's collectives
+                with self._device_stream():
+                    self._broadcast_header(0, stop=True)
+
+    def _dispatch(self):
         while not self._stop.is_set():
             try:
                 first = self._queue.get(timeout=0.1)
@@ -272,11 +350,12 @@ class TranscriptionService:
                 self._wait_device()
                 t2 = time.monotonic()
                 timing["h2d_s"] = t2 - t1
-                rolls_dev = self._run(wav_dev)
+                rolls_dev = self._run(self._share(wav_dev, len(jobs)))
                 self._wait_device()
                 timing["compute_s"] = time.monotonic() - t2
             else:
-                rolls_dev = self._run(host.to(self.device, non_blocking=True))
+                rolls_dev = self._run(self._share(host.to(self.device, non_blocking=True),
+                                                  len(jobs)))
             if self._cuda:
                 done = torch.cuda.Event()
                 done.record(self._stream)

@@ -25,6 +25,10 @@ global batch's, striped: `loss_fn` draws t, noise and the dropout mask for
 the global batch and keeps this rank's rows, and `sample` draws the global
 batch's per-step noise, samples this rank's rows and gathers the rolls to
 rank 0, so both equal the single-process run on the same global batch.
+Under a model axis (the net's parameters sharded, parallel/model_axis.py)
+the `nn.Module` route is column-parallel, and the kernel routes build their
+operands from the whole weights, gathered: once a training step, and once
+for the sampler's prepared operands.
 
 Guidance note (as in the JAX package): the unconditional branch of every
 guided sampler, cfdg_ddim_x0 included, conditions on spec := -1.
@@ -52,6 +56,7 @@ from ..ops.fused_forward import (
 )
 from ..ops.gated_stack import kernel_weights, stack_weights
 from ..ops.sampler_kernel import fused_sample, sampler_tables
+from ..parallel.model_axis import full_view
 from .losses import p_losses
 
 
@@ -115,14 +120,16 @@ class DiffusionTask:
         dev = net.input_projection.weight.device
         if self._fused is None or self._fused[0] != dev:
             cfg = self.config
-            w = stack_weights(net)
+            with full_view(net):   # the whole weights, gathered once
+                w = stack_weights(net)
+                head = head_weights(net)
+                ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
+                t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev),
+                               net.diffusion_embedding)                          # (n, E)
             kw = kernel_weights(w) if dev.type == "cuda" else None
-            ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
             tables = sampler_tables(self.schedule, cfg.sampling_type, ts, previous_timesteps(ts))
-            t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev),
-                           net.diffusion_embedding)                          # (n, E)
             t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]  # (n, L, C)
-            self._fused = (dev, w, head_weights(net), kw, torch.from_numpy(tables).to(dev),
+            self._fused = (dev, w, head, kw, torch.from_numpy(tables).to(dev),
                            t_bias, bool(np.any(tables[:, 2] != 0.0)))
         return self._fused[1:]
 
@@ -152,13 +159,14 @@ class DiffusionTask:
             # the conditioner is derived from data (the mel front end has no
             # parameters), so its gradient is never used
             c = c.detach()
-        if not torch.is_grad_enabled():
-            # validation: no backward follows, so the inference forward (K1 on
-            # a CUDA model) serves, with operands prepared for this one call
-            return fused_forward(self.model.net, x_t, t, c, dilations=mc.dilations())
-        return fused_forward(self.model.net, x_t, t, c, dilations=mc.dilations(),
-                             trainable=impl or ("cuda" if x_t.is_cuda else "plain"),
-                             need_dcond=False)
+        with full_view(self.model.net) as net:   # the kernels take whole weights
+            if not torch.is_grad_enabled():
+                # validation: no backward follows, so the inference forward (K1
+                # on a CUDA model) serves, with operands prepared for this call
+                return fused_forward(net, x_t, t, c, dilations=mc.dilations())
+            return fused_forward(net, x_t, t, c, dilations=mc.dilations(),
+                                 trainable=impl or ("cuda" if x_t.is_cuda else "plain"),
+                                 need_dcond=False)
 
     def loss_fn(
         self,

@@ -11,7 +11,9 @@ A checkpoint is one Lightning-style file, `<dir>/step_<N>.ckpt` or
     as a state_dict)
 
 so `transcribe pretrained_path=<file>` and `compat.load_lightning` read what
-`train` wrote, as they read a published checkpoint.
+`train` wrote, as they read a published checkpoint. Its tensors are whole
+under a model axis too (`whole_state` gathers the chunks), so a checkpoint
+written over any mesh loads in one process, and the other way round.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 
 from ..compat.torch_ckpt import (
     config_from_hparams, peek_hparams, read_ckpt, task_config_from_hparams)
+from ..parallel.model_axis import (
+    full_optimizer_state, full_state_dict, full_tensors, is_sharded)
 
 
 def _jsonable(obj: Any) -> Any:
@@ -56,6 +60,19 @@ def hyper_parameters(config: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def whole_state(state, extras: Optional[Dict[str, Any]] = None):
+    """(the net's state_dict, the optimizer's state, the extras) of `state`,
+    whole: where the net is sharded over a model axis every chunk is
+    gathered (a collective, so every rank of the mesh calls it), the EMA
+    among the extras too."""
+    net = state.model.net
+    if not is_sharded(net):
+        return net.state_dict(), state.optimizer.state_dict(), extras
+    extras = {k: full_tensors(net, v) if isinstance(v, dict) else v
+              for k, v in (extras or {}).items()}
+    return full_state_dict(net), full_optimizer_state(state.optimizer, net), extras or None
+
+
 class Checkpointer:
     """Manages `<dir>/step_<N>.ckpt` (monitored, top-k) and `<dir>/last.ckpt`."""
 
@@ -70,21 +87,23 @@ class Checkpointer:
         return self.directory / f"step_{step:09d}.ckpt"
 
     def save_last(self, state, config: Optional[Dict[str, Any]] = None,
-                  extras: Optional[Dict[str, Any]] = None) -> pathlib.Path:
-        """Overwrite the rolling `last` checkpoint."""
-        return self._save(self._path("last"), state, config, extras)
+                  extras: Optional[Dict[str, Any]] = None, whole=None) -> pathlib.Path:
+        """Overwrite the rolling `last` checkpoint. `whole` is `whole_state
+        (state, extras)` where the caller gathered it (a sharded net)."""
+        return self._save(self._path("last"), state, config, extras, whole)
 
     def save(self, step: int, state, config: Optional[Dict[str, Any]] = None,
-             extras: Optional[Dict[str, Any]] = None) -> pathlib.Path:
-        path = self._save(self._path(step), state, config, extras)
+             extras: Optional[Dict[str, Any]] = None, whole=None) -> pathlib.Path:
+        path = self._save(self._path(step), state, config, extras, whole)
         self._gc()
         return path
 
-    def _save(self, path, state, config, extras) -> pathlib.Path:
+    def _save(self, path, state, config, extras, whole) -> pathlib.Path:
+        state_dict, optimizer_state, extras = whole or whole_state(state, extras)
         payload = {
-            "state_dict": state.model.net.state_dict(),
+            "state_dict": state_dict,
             "hyper_parameters": hyper_parameters(config) if config is not None else {},
-            "optimizer_state": state.optimizer.state_dict(),
+            "optimizer_state": optimizer_state,
             "global_step": int(state.step),
         }
         payload.update(extras or {})

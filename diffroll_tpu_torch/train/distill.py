@@ -24,7 +24,10 @@ device, seeded per stage (student_steps * 7919 + 13).
 Over the data axis (`mesh`) the student's step is data-parallel: each rank
 draws the global batch's transitions and noise and keeps its stripe, the
 gradients are averaged (`make_train_step(mesh=)`), and the frozen teacher
-is replicated, prepared once per stage on every rank.
+is replicated, prepared once per stage on every rank. Under a model axis
+the teacher and the student hold their chunks (a student is a deep copy of
+its teacher); the teacher's kernel operands are built from its whole
+weights, gathered once a stage.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..diffusion.schedule import Schedule
 from ..models.base import DiffRollModel
 from ..ops.fused_forward import fused_forward, head_weights, supports_fused
 from ..ops.gated_stack import kernel_weights, stack_weights
+from ..parallel.model_axis import full_view
 from ..tasks.diffusion import DiffusionTask, TaskConfig
 from .state import TrainState
 from .step import make_train_step
@@ -65,9 +69,10 @@ class TeacherForward:
     def __init__(self, model: DiffRollModel, guided: bool, w: float, fused: bool):
         self.model, self.guided, self.w, self.fused = model, guided, float(w), fused
         if fused:
-            self.weights = stack_weights(model.net)
+            with full_view(model.net):   # the whole weights, gathered once a stage
+                self.weights = stack_weights(model.net)
+                self.head = head_weights(model.net)
             self.kweights = kernel_weights(self.weights) if model.device.type == "cuda" else None
-            self.head = head_weights(model.net)
 
     def _net(self, x, t, cond):
         if not self.fused:

@@ -10,8 +10,12 @@ Over the data axis (`mesh`): every rank starts from rank 0's weights, its
 generator seeded alike, and steps on its stripe of each global batch with
 the gradients averaged; the validation losses are reduced over the ranks,
 so every rank sees the global ones; the EMA is kept on every rank (the
-weights are the same bits everywhere). The caller passes the logger, the
-checkpointer and the hook on rank 0 only, so only rank 0 writes.
+weights are the same bits everywhere). The caller passes the logger and
+the checkpointer on rank 0 only, so only rank 0 writes. Under a model axis
+each rank steps and keeps the EMA of its chunks (cut from rank 0's whole
+weights by `shard_module`), every rank gathers the whole state for each
+checkpoint (`whole_state`) and rank 0 writes it, and the hook runs on every
+rank (it gathers the whole weights).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from ..config.experiment import TrainerConfig
 from ..data.pipeline import to_device
 from ..utils.logging import MetricLogger
 from ..utils.profiling import StepTimer, trace_if
-from .checkpoint import Checkpointer
+from ..parallel.model_axis import is_sharded
+from .checkpoint import Checkpointer, whole_state
 from .state import TrainState
 from .step import make_eval_step, make_train_step
 
@@ -101,7 +106,9 @@ def fit(
     eval_fn = make_eval_step(task.loss_fn)
     device = state.model.device
     generator = torch.Generator(device=device).manual_seed(trainer.seed)
-    if mesh is not None:
+    # a sharded net's chunks were cut from rank 0's whole weights already
+    sharded = is_sharded(state.model.net)
+    if mesh is not None and not sharded:
         mesh.broadcast_module(state.model.net)
 
     # EMA of the weights (TrainerConfig.ema_decay): tracked beside the state,
@@ -113,6 +120,18 @@ def fit(
 
     def ckpt_extras():
         return {"ema": ema} if ema is not None else None
+
+    # a sharded net's checkpoints are gathered by every rank, written by rank 0
+    saves = checkpointer is not None or sharded
+
+    def save(step=None):
+        whole = whole_state(state, ckpt_extras()) if sharded else None
+        if checkpointer is None:
+            return
+        if step is None:
+            checkpointer.save_last(state, config_record, extras=ckpt_extras(), whole=whole)
+        else:
+            checkpointer.save(step, state, config_record, extras=ckpt_extras(), whole=whole)
 
     best = math.inf
     timer = StepTimer()
@@ -158,13 +177,13 @@ def fit(
         if monitored is None and logger is not None and (losses or val_losses):
             logger.log_scalars(state.step, {"warn/monitor_unresolved": 1.0})
 
-        if checkpointer is not None:
+        if saves:
             if trainer.save_last:
-                checkpointer.save_last(state, config_record, extras=ckpt_extras())
+                save()
             if monitored is not None and monitored < best:
                 best = monitored
-                checkpointer.save(state.step, state, config_record, extras=ckpt_extras())
+                save(state.step)
 
-    if checkpointer is not None:
-        checkpointer.save_last(state, config_record, extras=ckpt_extras())
+    if saves:
+        save()
     return state

@@ -18,10 +18,11 @@ def make_train_step(loss_fn: LossFn, mesh=None):
     step, in place on `state`. The losses come back detached and stay on the
     device, so a step forces no host synchronisation.
 
-    With `mesh` the gradients and the losses are averaged over the ranks
-    after `backward` (`DataMesh.average_gradients`), whatever route the loss
-    took (the modules under autograd, or K3 + K4 through `GatedStackFn`),
-    so every rank applies the same update: the global batch's."""
+    With `mesh` the gradients and the losses are averaged over the data
+    group after `backward` (`Mesh.average_gradients`), whatever route the
+    loss took (the modules under autograd, or K3 + K4 through
+    `GatedStackFn`), so every rank applies the same update: the global
+    batch's; under a model axis each rank's to its chunks."""
 
     def step(state: TrainState, batch: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         state.model.train()

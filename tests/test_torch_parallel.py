@@ -21,8 +21,9 @@ timeout; the JAX side and the single-process runs in this process.
   * `transcribe` and `distill` on 2 ranks: rank 0 alone writes; its roll
     and its student against the single-process ones (atol 1e-5);
   * the loader's stripes, and the refusals: data_axis != world size, a
-    train batch that does not divide, model_axis > 1, data_axis > 1 outside
-    a launched group.
+    train batch that does not divide, a model_axis that does not divide the
+    world or is below 1, data_axis x model_axis != world size, and more
+    than one process asked for outside a launched group.
 
 Sizes: C=16, 3 layers, 10 timesteps; 32 frames and a global batch of 4 (the step),
 16 frames and 2 (the entries).
@@ -299,13 +300,16 @@ def test_mesh_refusals(dp):
     for msgs in (r["errors"] for r in dp["res"]):
         assert "ValueError" in msgs["data_axis"] and "group has 2 ranks" in msgs["data_axis"]
         assert "ValueError" in msgs["batch"] and "does not divide" in msgs["batch"]
-        assert msgs["model_axis"].startswith("NotImplementedError")
-        assert "item 25" in msgs["model_axis"]
+        assert msgs["batch_not_training"] == 2
+        assert msgs["model_axis"].startswith("ValueError")
+        assert "does not divide the process group's 2 ranks" in msgs["model_axis"]
+        assert "ValueError" in msgs["model_axis_zero"] and ">= 1" in msgs["model_axis_zero"]
+        assert "ValueError" in msgs["mesh_size"] and "group has 2 ranks" in msgs["mesh_size"]
     # outside a launched group: no mesh at world size 1, a refusal above it
     assert setup_mesh(tconfig.compose("spec_roll"), torch.device("cpu")) is None
     with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         setup_mesh(tconfig.compose("spec_roll", {"trainer.data_axis": "2"}), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=4"):
         setup_mesh(tconfig.compose("spec_roll", {"trainer.model_axis": "4"}), torch.device("cpu"))
 
 
