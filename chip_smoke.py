@@ -149,51 +149,78 @@ exits non-zero):
                 dense modules sampler on the same draws (rel < 1e-3); no kernel
      The times of 17-20 are printed under the label "2 ranks sharing one card:
      not a scaling figure". Steps and stages are cut, not widths
- 21. k1         the gated-stack kernel vs its plain version at the flagship
+ 21. learn      the quality evidence (diffroll_tpu_torch/quality) on the twin of
+                the flagship (128 x 8, 128 frames, T=100, B=8). First K3 and K4 at
+                the shape of its training steps ((8, 128, 128), dilations 1-2-4-8,
+                one row tile a sequence) against their plain versions on the
+                kernels' bf16-rounded weights: K3's skip K1's bit for bit, skip /
+                xs / a and every K4 leaf (with and without dcond) rel < 0.05, the
+                same bits on a second run; the worst K4 leaf printed (these
+                launches are not counted). (a) the learning
+                check at the JAX script's defaults (2000 steps on 64 v2 clips,
+                scored on 8 held-out clips by cfdg_ddpm_x0 w=0.5, `sweep_steps=1`),
+                twice from the same init and draws, through K3 + K4 and through
+                autograd (f32, TF32 off), each route also scored by cfdg_ddim_x0
+                at 25 steps: the loss at steps 0, 1000, 1999 (the last below half
+                the first), note F1 >= 0.40 and frame F1 >= 0.60, the 25-step
+                frame F1 within 0.05 of the dense score, K3 and K4 2000 times on
+                the fused route and 0 on the other, K2 10 times each; the note
+                F1 difference of the routes printed, not gated. (b) a MAPS-layout
+                tree (32 + 8 recordings of 4.096 s), `cli.train.main spec_roll` at
+                the twin's widths (~1000 steps at B=8, K3 + K4), then on its
+                checkpoint `eval_inpainting` (mask=48,80 and fmask=29,51: K2 3
+                times each), `eval_longform` (60 s, cut from 180: K2 5 times) and
+                `eval_boundary` (steps=1000 n_train=64 n_long=2, cut from 4000,
+                128, 8: K3 + K4 1000 times, K2 4): finite metrics. (c) the
+                trained twin of (a)'s fused route, 100 guided steps at B=1 and B=8
+                by K2 and by the step loop, against the plain version on the same
+                bf16-rounded weights (< 0.05) and on f32 weights (printed, not
+                gated). The cuts are listed under `reduced`
+ 22. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 22. k2         the whole-process sampler vs its plain version at B=1 and at
+ 23. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 23. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 24. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 24. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 25. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 25. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 26. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 26. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 27. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
- 27. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+ 28. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
                 stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
                 0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 22: the error against the unrounded f32 weights,
+     beside them in phase 23: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 28. k3         the training forward-with-saves kernel vs its plain version at
+ 29. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 29. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+ 30. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
                 512), the conditional rows then spec := -1: rel < 0.05 and the
                 same bits on a second run
- 30. k4         the training backward kernel vs its plain version from the same
+ 31. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 31. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 32. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 32. distill_grads one guided distill loss + backward at B=16 with fixed
+ 33. distill_grads one guided distill loss + backward at B=16 with fixed
                 transitions and noise: the teacher through K1 and the student
                 through K3 + K4, against both through the nn.Modules on the
                 bf16-rounded weights: every student gradient rel < 0.05, the
                 losses within 1e-2 relative
- 33. times      warm median times of the four kernels and their plain versions
+ 34. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
                 under `*_b8`), of a whole training step at B=16 by three
@@ -221,7 +248,9 @@ train, test, sample, serve, distill, distill_test: the students' test runs,
 baseline, trainable, v2, unet, spec_unet and bf16, each 0 of every kernel,
 dp_train, dp_test and dp_distill: rank 0's counts in phase dp, mp_train and
 mp_distill: rank 0's in phase mp, serve_mesh and sp: rank 0's, sp 0 of every
-kernel).
+kernel; learn_fused and learn_autograd: the learning check's two routes,
+learn_cli_train, eval_inpainting_mask, eval_inpainting_fmask, eval_longform
+and eval_boundary: phase learn's tools).
 K1's `max_abs_err` is its single pass's; `max_abs_err_step_loop` is the
 largest of its step loops' 200-step trajectories against the plain ones.
 """
@@ -1893,6 +1922,202 @@ def run_sp_phase(tmp: pathlib.Path, ckpt: pathlib.Path, kernels) -> dict:
     return {fn.__name__: r0["launches"].get(fn.__name__, 0) for fn in kernels}
 
 
+LEARN_STEPS = 2000        # the learning check at the JAX script's defaults
+LEARN_CLIPS = 64
+LEARN_NOTE_F1, LEARN_FRAME_F1 = 0.40, 0.60   # a random model reads near 0
+LEARN_DDIM_STEPS = 25     # tests/test_convergence.py:69-79's strided gate, at a quarter of 100
+LEARN_DDIM_TOL = 0.05
+TREE_TRAIN, TREE_TEST, TREE_SECONDS = 32, 8, 4.096   # one 128-frame window a recording
+CLI_TWIN_EPOCHS = 250     # 32 recordings at B=8: 4 steps an epoch, 1,000 steps
+LONGFORM_SECONDS = 60     # cut from the JAX tool's 180
+BOUNDARY_ARGS = ["steps=1000", "n_train=64", "n_long=2"]   # cut from 4000, 128, 8
+TWIN_KEYS = ["model.residual_channels=128", "model.residual_layers=8", "model.frames=128",
+             "dataset.sequence_length=65536", "task.timesteps=100"]
+
+
+def finite_tree(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(finite_tree(v) for v in tree.values())
+    if isinstance(tree, float):
+        return math.isfinite(tree)
+    return True
+
+
+def hold_twin_training_kernels() -> dict:
+    """K3 and K4 at the shape every training step of phase learn gives them:
+    the twin's widths (128 x 8, dilations 1-2-4-8), B=8 sequences of 128
+    frames (one row tile a sequence, the dilation halo at both ends of it),
+    the 229-bin conditioner. Held against their plain versions on the
+    kernels' own bf16-rounded weights: K3's skip is K1's bit for bit, skip /
+    xs / a and every K4 leaf (with and without dcond) below GATE, and a
+    second run gives the same bits. Returns the readings; raises on a miss."""
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack, kernel_weights, stack_weights
+    from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
+    from diffroll_tpu_torch.quality import synthetic_end_to_end
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    twin = synthetic_end_to_end.build_twin({})
+    torch.nn.init.normal_(twin.net.output_projection.weight, std=0.1)
+    twin.to(dev)
+    dil, c, frames = twin.config.dilations(), twin.config.residual_channels, twin.config.frames
+    w = stack_weights(twin.net)
+    kw = kernel_weights(w)
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    b, n_layers = synthetic_end_to_end.BATCH, len(dil)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(b, frames, c, device=dev, generator=gen)
+    tb = 0.1 * torch.randn(n_layers, b, c, device=dev, generator=gen)
+    cond = torch.rand(b, frames, twin.config.n_mels, device=dev, generator=gen)
+    cot = torch.randn(b, frames, c, device=dev, generator=gen)
+    with torch.no_grad():
+        skip, xs, a = fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        skip2, xs2, a2 = fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        skip_r, xs_r, a_r = fwd_saves_ref(x, tb, cond, wq, dil)
+        k1_same = torch.equal(skip, gated_stack(x, tb, cond, w, dil, kweights=kw))
+    torch.cuda.synchronize()
+    k3 = {"skip": rel_err(skip, skip_r), "xs": rel_err(xs, xs_r), "a": rel_err(a, a_r)}
+    k3_same = torch.equal(skip, skip2) and torch.equal(xs, xs2) and torch.equal(a, a2)
+    out = {"shape": [b, frames, c], "layers": n_layers, "dilations": list(dil),
+           "k3_skip_is_k1_bitwise": k1_same, "k3_same_bits_on_rerun": k3_same,
+           **{f"k3_{k}_rel": v[0] for k, v in k3.items()}, "k4": {}}
+    ok = k1_same and k3_same and all(v[0] < GATE for v in k3.values())
+    for need_dcond in (True, False):
+        with torch.no_grad():
+            got = leaves_of(bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            again = leaves_of(bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            want = leaves_of(bwd_ref(dil, (tb, cond, wq, xs, a), cot, need_dcond))
+        torch.cuda.synchronize()
+        name, rel, abs_err = worst_leaf(got, want)
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        out["k4"]["dcond" if need_dcond else "no_dcond"] = {
+            "leaves": sorted(want), "worst_leaf": name, "rel": rel, "max_abs_err": abs_err,
+            "same_bits_on_rerun": same}
+        ok = ok and rel < GATE and same and ("dcond" in got) == need_dcond
+    out["gate"] = GATE
+    if not ok:
+        phase("learn", failed_hold="twin_training_kernels", **out)
+        raise RuntimeError(f"learn: K3 or K4 at the twin's shape disagrees with its plain "
+                           f"version or with itself on a second run: {out}")
+    return out
+
+
+def run_learn_phase(tmp: pathlib.Path, kernels) -> dict:
+    """Phase learn: K3 and K4 held at the twin's shape, the learning check on
+    both training routes, the quality tools on a CLI-trained twin, and the
+    trained twin's reverse process against the plain version (ROADMAP Queue
+    3's bf16 item). Returns each path's launches."""
+    from diffroll_tpu_torch.cli import train as cli_train
+    from diffroll_tpu_torch.quality import (
+        bf16_drift, eval_boundary, eval_inpainting, eval_longform, make_synthetic_tree,
+        synthetic_end_to_end)
+
+    t_phase = time.perf_counter()
+    paths, routes, twin = {}, {}, None
+    # the kernels of every training step below, at that step's shape, against
+    # their plain versions (these launches are not counted: each path resets)
+    twin_hold = hold_twin_training_kernels()
+    # (a) the learning check at the JAX defaults, twice from the same init and
+    # draws: K3 + K4, then autograd through the f32 modules (TF32 is off)
+    for fused in (1, 0):
+        reset_launches(*kernels)
+        t0 = time.perf_counter()
+        m, tw = synthetic_end_to_end.learning_check(synthetic_end_to_end.parse_args([
+            f"steps={LEARN_STEPS}", f"n_train={LEARN_CLIPS}", "corpus=v2", "sweep_steps=1",
+            f"fused_train={fused}", "device=cuda"]))
+        ddim = tw.score("cfdg_ddim_x0", LEARN_DDIM_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = "learn_fused" if fused else "learn_autograd"
+        paths[name] = kernel_launches(kernels)
+        losses = m["losses"]
+        first, mid, last = (losses[str(i)] for i in (0, LEARN_STEPS // 2, LEARN_STEPS - 1))
+        routes[name] = dict(
+            fused_train=bool(fused), losses={"0": first, str(LEARN_STEPS // 2): mid,
+                                             str(LEARN_STEPS - 1): last},
+            seconds=wall, train_and_score_s=m["wall_s"], note_f1=m["note_f1"],
+            frame_f1=m["frame_f1"], note_p_r=[m["note_precision"], m["note_recall"]],
+            frame_p_r=[m["frame_precision"], m["frame_recall"]], steps_sweep=m["steps_sweep"],
+            ddim25={"note_f1": ddim["note_f1"], "frame_f1": ddim["frame_f1"]},
+            launches=paths[name])
+        want_k34 = LEARN_STEPS if fused else 0
+        ok = (last < 0.5 * first and m["note_f1"] >= LEARN_NOTE_F1
+              and m["frame_f1"] >= LEARN_FRAME_F1
+              and ddim["frame_f1"] >= m["frame_f1"] - LEARN_DDIM_TOL
+              and paths[name]["fwd_saves"] == want_k34 and paths[name]["bwd"] == want_k34
+              and paths[name]["fused_sample"] == 10 and finite_tree(m))
+        if not ok:
+            phase("learn", failed_route=name, **routes[name])
+            raise RuntimeError(f"learn: the {name} route missed a gate: {routes[name]}")
+        if fused:
+            twin = tw
+        del tw
+    note_f1_diff = routes["learn_fused"]["note_f1"] - routes["learn_autograd"]["note_f1"]
+
+    # (b) the tools on a twin trained through the CLI on a MAPS-layout tree
+    tree = tmp / "quality_tree"
+    make_synthetic_tree.write_tree(tree, TREE_TRAIN, TREE_TEST, TREE_SECONDS)
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    state = cli_train.main([
+        "spec_roll", f"dataset.root={tree}", *TWIN_KEYS, "task.fused_train=true",
+        "task.lr=4e-4", "dataloader.train_batch_size=8", "dataloader.val_batch_size=8",
+        f"trainer.max_epochs={CLI_TWIN_EPOCHS}",
+        f"trainer.check_val_every_n_epoch={CLI_TWIN_EPOCHS}", "trainer.log_every_n_steps=100",
+        "device=cuda", f"trainer.output_dir={tmp / 'quality_train'}"])
+    torch.cuda.synchronize()
+    tools = {"cli_train": {"seconds": time.perf_counter() - t0, "steps": state.step}}
+    paths["learn_cli_train"] = tools["cli_train"]["launches"] = kernel_launches(kernels)
+    run_dir = next((tmp / "quality_train").glob("*/*/train-*"))
+    ckpt = run_dir / "checkpoints" / "last.ckpt"
+    post_fit = json.loads((run_dir / "test_metrics.json").read_text())
+    tools["cli_train"]["test_metrics"] = {k: post_fit[k] for k in ("n_clips", "note_f1",
+                                                                  "frame_f1")}
+    del state
+    if paths["learn_cli_train"]["fwd_saves"] != tools["cli_train"]["steps"]:
+        raise RuntimeError(f"learn: cli train launched K3 {paths['learn_cli_train']}")
+    on_ckpt = [f"ckpt={ckpt}", "w=0.5", "device=cuda"]
+    # (path, tool, its arguments, K2 launches, K3 and K4 launches)
+    runs = (("eval_inpainting_mask", eval_inpainting,
+             on_ckpt + [f"root={tree}", "mask=48,80", f"tmpdir={tmp / 'inpainting'}"], 3, 0),
+            ("eval_inpainting_fmask", eval_inpainting,
+             on_ckpt + [f"root={tree}", "fmask=29,51", f"tmpdir={tmp / 'inpainting'}"], 3, 0),
+            ("eval_longform", eval_longform, on_ckpt + [f"seconds={LONGFORM_SECONDS}"], 5, 0),
+            ("eval_boundary", eval_boundary, BOUNDARY_ARGS + ["device=cuda"], 4, 1000))
+    for name, module, argv, k2_calls, k34_calls in runs:
+        reset_launches(*kernels)
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        torch.cuda.synchronize()
+        paths[name] = kernel_launches(kernels)
+        tools[name] = {"seconds": time.perf_counter() - t0, "launches": paths[name],
+                       "result": out}
+        if not (finite_tree(out) and paths[name]["fused_sample"] == k2_calls
+                and paths[name]["fwd_saves"] == k34_calls == paths[name]["bwd"]):
+            phase("learn", failed_tool=name, **tools[name])
+            raise RuntimeError(f"learn: {name} gave non-finite metrics or launched "
+                               f"{paths[name]} (K2 {k2_calls}, K3 / K4 {k34_calls} expected)")
+
+    # (c) the trained twin's 100-step guided process at B=1 and B=8, K2 and the
+    # step loop against the plain version on the same bf16-rounded weights
+    # (gated) and on f32 weights (ROADMAP Queue 3's reading, not gated)
+    drift = [bf16_drift.drift(twin.model, twin.test_audio[:b]) for b in (1, 8)]
+    seconds = time.perf_counter() - t_phase
+    phase("learn", seconds=seconds, twin_training_kernels=twin_hold, routes=routes,
+          note_f1_fused_minus_autograd=note_f1_diff, tools=tools, drift=drift,
+          reduced={"eval_longform": f"seconds={LONGFORM_SECONDS} (180 in the JAX tool)",
+                   "eval_boundary": " ".join(BOUNDARY_ARGS) + " (4000, 128, 8)",
+                   "cli_train": f"{TREE_TRAIN} + {TREE_TEST} recordings of {TREE_SECONDS} s, "
+                                f"~{CLI_TWIN_EPOCHS * TREE_TRAIN // 8} steps"})
+    bad = [r for r in drift if not (r["finite"] and r["k2_rel_bf16_weights"] < GATE
+                                    and r["loop_rel_bf16_weights"] < GATE)]
+    if bad:
+        raise RuntimeError(f"learn: K2 or the step loop on the trained twin disagrees with "
+                           f"the plain version on the same bf16-rounded weights: {bad}")
+    del twin
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2080,6 +2305,7 @@ def main() -> int:
         path_launches.update(run_mp_phase(tmp, ckpt, all_kernels))
         path_launches["serve_mesh"] = run_serve_mesh_phase(tmp, ckpt, all_kernels)
         path_launches["sp"] = run_sp_phase(tmp, ckpt, all_kernels)
+        path_launches.update(run_learn_phase(tmp, all_kernels))
 
     net = model.net
     dil = mc.dilations()

@@ -26,13 +26,18 @@ from ..tasks.diffusion import DiffusionTask, TaskConfig
 from ..train.state import TrainState
 
 
-def resolve_device(cfg: ExperimentConfig) -> torch.device:
-    """`cfg.device` as a torch.device; exits when it names a card that is
-    not there (no entry point falls back to the CPU by itself)."""
-    device = torch.device(cfg.device)
+def device_named(name: str) -> torch.device:
+    """`name` as a torch.device; exits when it names a card that is not
+    there (no entry point falls back to the CPU by itself)."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device=cuda but no CUDA device is available; pass device=cpu")
     return device
+
+
+def resolve_device(cfg: ExperimentConfig) -> torch.device:
+    """`cfg.device` as a torch.device (`device_named`)."""
+    return device_named(cfg.device)
 
 
 def setup_mesh(cfg: ExperimentConfig,

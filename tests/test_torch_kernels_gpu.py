@@ -503,3 +503,142 @@ def test_presets_training_kernels(cuda_f32, name):
         for leaf in want:
             assert _rel(got[leaf], want[leaf]) < BF16_GATE, (need_dcond, leaf)
             assert torch.equal(got[leaf], rerun[leaf]), (need_dcond, leaf)
+
+
+# ---- the learning check's twin (diffroll_tpu_torch/quality/synthetic_end_to_end.py):
+# 128 channels x 8 layers, dilations 1-2-4-8, 128-frame sequences (one row tile
+# a sequence, the dilation halo at both ends of the same tile), T=100, B=8 (16
+# sequences when guided)
+TWIN = dict(residual_channels=128, residual_layers=8, frames=128, timesteps=100)
+
+
+def _twin_case(dev, b):
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", **TWIN).to(dev)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    w = tgs.stack_weights(tm.net)
+    kw = tgs.kernel_weights(w)
+    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    x = torch.randn(b, 128, 128, device=dev)
+    tb = 0.1 * torch.randn(8, b, 128, device=dev)
+    cond = torch.rand(b, 128, 229, device=dev)
+    cot = torch.randn(b, 128, 128, device=dev)
+    return tm, w, wq, kw, x, tb, cond, cot
+
+
+@pytest.mark.gpu
+def test_twin_stack_kernel(cuda_f32):
+    """K1 at the twin's widths over the 16 sequences of a guided B=8 step."""
+    tm, w, wq, kw, x, tb, cond, _ = _twin_case(cuda_f32, 16)
+    dil = tm.config.dilations()
+    assert dil == (1, 2, 4, 8, 1, 2, 4, 8) and kw.mp == 256
+    with torch.no_grad():
+        out = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+        again = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+        ref = tgs.gated_stack_ref(x, tb, cond, wq, dil)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) < BF16_GATE and torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,steps", [("cfdg_ddpm_x0", None), ("cfdg_ddim_x0", 25)],
+                         ids=["guided_100", "ddim_25"])
+def test_twin_fused_sample_batch8(cuda_f32, name, steps):
+    """K2 at the twin's widths and B=8 (the learning check's scoring batch):
+    against the plain process on the kernels' weight values, the same bits on
+    a second run, the task's route; then the step loop against the same
+    plain trajectory."""
+    dev = cuda_f32
+    tm = _twin_case(dev, 1)[0]
+    cfg = TaskConfig(timesteps=100, sampling_type=name, sampling_steps=steps, w=0.5)
+    task = DiffusionTask(tm, cfg)
+    x_T = torch.randn(8, 128, 88, device=dev)
+    wav = 0.1 * torch.randn(8, 128 * 512, device=dev)
+    with torch.no_grad():
+        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        noise = torch.randn(tables.shape[0], 8, 128, 88, device=dev) if stochastic else None
+        args = (x_T, noise, t_bias, tables, w, head, tm.conditioner(waveform=wav),
+                tm.config.dilations(), True, 0.5, stochastic)
+        wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+        before = fused_sample.launches
+        out = fused_sample(*args, kweights=kw)
+        again = fused_sample(*args, kweights=kw)
+        ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
+    via_task = task.sample(x_T, waveform=wav, noise=noise)[0]
+    loop = DiffusionTask(tm, cfg.replace(use_megakernel=False)).sample(
+        x_T, waveform=wav, noise=noise)[0]
+    torch.cuda.synchronize()
+    assert fused_sample.launches == before + 3
+    assert tables.shape[0] == (100 if steps is None else steps)
+    assert torch.isfinite(out).all() and _rel(out, ref) < BF16_GATE
+    assert torch.equal(out, again) and torch.equal(via_task, out)
+    assert _rel(loop, ref) < BF16_GATE
+
+
+@pytest.mark.gpu
+def test_twin_training_kernels(cuda_f32):
+    """K3 (skip bit for bit K1's) and K4 (every leaf, with and without dcond)
+    at the twin's widths and the training batch B=8, against their plain
+    versions, and the same bits on a second run."""
+    tm, w, wq, kw, x, tb, cond, cot = _twin_case(cuda_f32, 8)
+    dil = tm.config.dilations()
+    with torch.no_grad():
+        skip, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        skip_r, xs_r, a_r = tgt.fwd_saves_ref(x, tb, cond, wq, dil)
+        k1 = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, k1)
+    for out, ref in ((skip, skip_r), (xs.float(), xs_r), (a.float(), a_r)):
+        assert _rel(out, ref) < BF16_GATE
+
+    def leaves(o):
+        dx, dtb, dcond, dw = o
+        named = {"dx": dx, "dtb": dtb, "dcond": dcond}
+        named.update({f"d{k}": v for k, v in dw._asdict().items()})
+        return {k: v for k, v in named.items() if v is not None}
+
+    for need_dcond in (True, False):
+        with torch.no_grad():
+            got = leaves(tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            rerun = leaves(tgt.bwd(dil, (tb, cond, w, xs, a), cot, need_dcond, kweights=kw))
+            want = leaves(tgt.bwd_ref(dil, (tb, cond, wq, xs, a), cot, need_dcond))
+        torch.cuda.synchronize()
+        assert got.keys() == want.keys() and ("dcond" in got) == need_dcond
+        for leaf in want:
+            assert _rel(got[leaf], want[leaf]) < BF16_GATE, (need_dcond, leaf)
+            assert torch.equal(got[leaf], rerun[leaf]), (need_dcond, leaf)
+
+
+@pytest.mark.gpu
+def test_twin_training_loss_matches_autograd(cuda_f32):
+    """One training loss of the twin at B=8 through K3 + K4 against autograd
+    through the modules on the same bf16-rounded stack weights and draws:
+    the loss within 1e-2, every gradient within the bf16 gate."""
+    dev = cuda_f32
+    tm = _twin_case(dev, 1)[0]
+    rounded = tmodels.build("ClassifierFreeDiffRoll", **TWIN).to(dev)
+    rounded.net.load_state_dict(tm.net.state_dict())
+    with torch.no_grad():
+        for layer in rounded.net.residual_layers:
+            for conv in (layer.dilated_conv, layer.conditioner_projection,
+                         layer.output_projection):
+                conv.weight.copy_(conv.weight.to(torch.bfloat16).float())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"frame": (torch.rand(8, 128, 88, device=dev, generator=gen) > 0.95).float(),
+             "audio": 0.1 * torch.randn(8, 128 * 512, device=dev, generator=gen)}
+    draws = dict(t=torch.randint(0, 100, (8,), device=dev, generator=gen),
+                 noise=torch.randn(8, 128, 88, device=dev, generator=gen),
+                 uncond_mask=torch.arange(8, device=dev) == 3)
+    losses, grads = {}, {}
+    before = (tgt.fwd_saves.launches, tgt.bwd.launches)
+    for key, model, fused in (("fused", tm, True), ("autograd", rounded, False)):
+        task = DiffusionTask(model, TaskConfig(timesteps=100, fused_train=fused))
+        total, _ = task.loss_fn(batch, None, True, **draws)
+        total.backward()
+        losses[key] = float(total.detach())
+        grads[key] = {n: p.grad for n, p in model.net.named_parameters()}
+    torch.cuda.synchronize()
+    assert (tgt.fwd_saves.launches - before[0], tgt.bwd.launches - before[1]) == (1, 1)
+    assert abs(losses["fused"] - losses["autograd"]) < 1e-2 * abs(losses["autograd"])
+    for name, g in grads["autograd"].items():
+        assert _rel(grads["fused"][name], g) < BF16_GATE, name

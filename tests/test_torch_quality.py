@@ -1,0 +1,287 @@
+"""The port's quality evidence (`diffroll_tpu_torch.quality`) on the CPU:
+the synthetic corpora, the MAPS-layout tree and the longform piece bit for
+bit (byte for byte) the JAX scripts', the fmask mel-bin -> key mapping and
+the band scorer exactly the JAX tool's computation, and every entry end to
+end at a tiny size (finite metrics, the JAX scripts' JSON keys).
+
+The JAX-side scripts parse their arguments from `sys.argv` when they are
+imported (examples/synthetic_end_to_end.py, tools/make_synthetic_tree.py),
+so they are loaded with `importlib` and `sys.argv` patched to []."""
+
+import importlib.util
+import json
+import math
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from diffroll_tpu.data.rasterize import rasterize_arrays as j_rasterize_arrays
+from diffroll_tpu.dsp import mel as jmel
+from diffroll_tpu.eval.evaluate import evaluate_rolls as j_evaluate_rolls
+from diffroll_tpu_torch.dsp.mel import MelConfig
+from diffroll_tpu_torch.quality import (
+    bf16_drift, eval_boundary, eval_inpainting, eval_longform, make_synthetic_tree,
+    synthetic_end_to_end)
+
+torch.set_num_threads(1)
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FIXTURE = REPO / "tests" / "fixtures" / "lightning_small.ckpt"
+# the learning check at a tiny size: clips of 32 frames (1.02 s) still hold notes
+TINY = ["channels=16", "layers=2", "frames=32", "timesteps=10", "n_train=4", "n_test=2",
+        "device=cpu"]
+JAX_KEYS = {"frame_precision", "frame_recall", "frame_f1", "note_precision", "note_recall",
+            "note_f1", "train_steps", "wall_s", "dtype", "corpus"}
+
+
+def _load_script(name: str, path: pathlib.Path):
+    saved_argv, saved_path = sys.argv, list(sys.path)
+    sys.argv = []
+    try:
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    finally:
+        sys.argv, sys.path[:] = saved_argv, saved_path
+    return module
+
+
+@pytest.fixture(scope="module")
+def jax_e2e():
+    return _load_script("jax_synthetic_end_to_end", REPO / "examples" / "synthetic_end_to_end.py")
+
+
+@pytest.fixture(scope="module")
+def jax_tree():
+    return _load_script("jax_make_synthetic_tree", REPO / "tools" / "make_synthetic_tree.py")
+
+
+def _fields(notes):
+    return [(n.onset, n.offset, n.pitch, n.velocity) for n in notes]
+
+
+def _finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return math.isfinite(tree)
+    return True
+
+
+# ---------------------------------------------------------------- (1) corpora
+
+
+@pytest.mark.parametrize("seed", [0, 1000, 5000])
+@pytest.mark.parametrize("corpus", ["v1", "v2"])
+def test_make_clip_bit_for_bit(jax_e2e, corpus, seed):
+    audio, roll = synthetic_end_to_end.make_clip(seed, corpus)
+    j_audio, j_roll = jax_e2e.make_clip(seed, corpus)
+    assert audio.shape == (synthetic_end_to_end.SEQ,) and roll.shape == (128, 88)
+    assert audio.dtype == j_audio.dtype and roll.dtype == j_roll.dtype
+    assert np.array_equal(audio, j_audio) and np.array_equal(roll, j_roll)
+    assert roll.sum() > 0
+    assert (synthetic_end_to_end.SR, synthetic_end_to_end.HOP, synthetic_end_to_end.FRAMES,
+            synthetic_end_to_end.SEQ, synthetic_end_to_end.TIMESTEPS) == (
+        jax_e2e.SR, jax_e2e.HOP, jax_e2e.FRAMES, jax_e2e.SEQ, jax_e2e.TIMESTEPS)
+
+
+# ---------------------------------------------------------------- (2) the tree
+
+
+def test_make_synthetic_tree_byte_for_byte(jax_tree, tmp_path):
+    jax_tree.ARGS.clear()
+    jax_tree.ARGS.update(out=str(tmp_path / "jax"), n_train="2", n_test="1", seconds="2.0")
+    jax_tree.main()
+    make_synthetic_tree.main([f"out={tmp_path / 'port'}", "n_train=2", "n_test=1",
+                              "seconds=2.0"])
+    want = sorted(p.relative_to(tmp_path / "jax")
+                  for p in (tmp_path / "jax").rglob("*") if p.is_file())
+    got = sorted(p.relative_to(tmp_path / "port")
+                 for p in (tmp_path / "port").rglob("*") if p.is_file())
+    assert got == want and len(want) == 6
+    assert {p.parts[:3] for p in want} == {("MAPS", "AkPnBcht", "MUS"),
+                                           ("MAPS", "ENSTDkAm", "MUS")}
+    for rel in want:
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
+
+
+# ---------------------------------------------------------------- (3), (4) the scorers
+
+
+@pytest.mark.parametrize("band", [(29, 51), (5, 20), (60, 120)])
+def test_fmask_keys_match_the_jax_tool(band):
+    """The JAX tool's lines (tools/eval_inpainting.py:98-109) on its HTK
+    functions against `fmask_keys`."""
+    m0, m1 = band
+    mel = MelConfig()
+    pts = jmel.mel_to_hz_htk(np.linspace(jmel.hz_to_mel_htk(mel.f_min),
+                                         jmel.hz_to_mel_htk(mel.f_max), mel.n_mels + 2))
+    hz_lo, hz_hi = float(pts[m0]), float(pts[m1 + 1])
+    midi = 21 + np.arange(88)
+    f0s = 440.0 * 2.0 ** ((midi - 69) / 12.0)
+    inside = np.where((f0s >= hz_lo) & (f0s < hz_hi))[0]
+    want = (hz_lo, hz_hi, int(inside[0]), int(inside[-1]) + 1)
+    assert eval_inpainting.fmask_keys(m0, m1, mel) == want
+
+
+def _random_rolls(seed, n=3, frames=64):
+    rng = np.random.RandomState(seed)
+    label = np.zeros((n, frames, 88), np.float32)
+    for i in range(n):
+        for _ in range(12):
+            p, t0 = rng.randint(0, 88), rng.randint(0, frames - 8)
+            label[i, t0:t0 + rng.randint(2, 8), p] = 1.0
+    pred = np.clip(label + 0.4 * rng.randn(*label.shape), 0, 1).astype(np.float32)
+    return pred, label
+
+
+@pytest.mark.parametrize("axis", ["time", "pitch"])
+def test_band_scores_match_jax_evaluate_rolls(axis):
+    """The JAX tool's slicing (tools/eval_inpainting.py:146-163) scored by
+    JAX's `evaluate_rolls`, against `band_scores`: equal."""
+    pred, label = _random_rolls(3)
+    a, b = (16, 40) if axis == "time" else (30, 52)
+    kw = dict(frames=(a, b)) if axis == "time" else dict(keys=(a, b))
+    inside, outside = eval_inpainting.band_scores(pred, label, **kw)
+    ax = 1 if axis == "time" else 2
+    sl = (slice(None), slice(a, b)) if ax == 1 else (slice(None), slice(None), slice(a, b))
+    lo = (slice(None), slice(None, a)) if ax == 1 else (slice(None), slice(None), slice(None, a))
+    hi = (slice(None), slice(b, None)) if ax == 1 else (slice(None), slice(None), slice(b, None))
+    assert inside == j_evaluate_rolls(pred[sl], label[sl])
+    assert outside == j_evaluate_rolls(np.concatenate([pred[lo], pred[hi]], axis=ax),
+                                       np.concatenate([label[lo], label[hi]], axis=ax))
+    assert 0 < inside["note_f1"] < 1 and 0 < outside["frame_f1"] < 1
+    with pytest.raises(ValueError, match="one band"):
+        eval_inpainting.band_scores(pred, label)
+
+
+# ---------------------------------------------------------------- (5) the learning check
+
+
+@pytest.mark.parametrize("fused", ["0", "1"], ids=["autograd", "fused_plain"])
+def test_learning_check_tiny(fused, capsys):
+    m = synthetic_end_to_end.main(TINY + ["steps=5", "sweep_steps=1", f"fused_train={fused}"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == m
+    assert JAX_KEYS | {"steps_sweep"} <= set(m)
+    assert set(m["steps_sweep"]) == {f"{s}@{n}" for s in ("cfdg_ddpm_x0", "cfdg_ddim_x0")
+                                     for n in (10, 50, 20)}
+    assert m["fused_train"] is (fused == "1") and m["train_steps"] == 5
+    assert set(m["losses"]) == {"0", "4"} and m["losses"]["0"] > 0
+    assert _finite(m)
+
+
+def test_learning_check_routes_and_distill_tiny():
+    """The same init and draws: the fused route's plain versions (K3 + K4 on
+    the CPU) train the twin as autograd does; then two distillation stages,
+    each student scored beside the undistilled sampler."""
+    args = synthetic_end_to_end.parse_args(TINY + ["steps=3"])
+    models = {}
+    for fused in ("0", "1"):
+        _, twin = synthetic_end_to_end.learning_check({**args, "fused_train": fused})
+        models[fused] = twin.model.net.state_dict()
+    for k, v in models["0"].items():
+        assert torch.allclose(models["1"][k], v, rtol=1e-3, atol=1e-5), k
+    m, _ = synthetic_end_to_end.learning_check(
+        {**args, "distill": "1", "distill_start": "5", "distill_stages": "2",
+         "distill_steps": "2"})
+    assert set(m["distill"]) == {"5steps", "3steps"} and _finite(m)
+
+
+# ---------------------------------------------------------------- (6) the tools
+
+
+def test_eval_boundary_tiny():
+    out = eval_boundary.main(["steps=3", "n_train=4", "n_long=1", "long_windows=3", "overlap=4",
+                              "channels=16", "layers=2", "frames=32", "timesteps=10",
+                              "device=cpu"])
+    assert {"tiled_note_f1", "tiled_frame_f1", "stitched_note_f1", "stitched_frame_f1",
+            "note_f1_delta", "frame_f1_delta"} <= set(out) and _finite(out)
+
+
+def test_eval_boundary_corpus_is_the_jax_tools(jax_tree):
+    """The tool's notes for a long recording are the JAX tool's
+    (`make_notes(seed, n_frames)`, tools/eval_boundary.py:64-77)."""
+    for seed, n_frames in ((5_000, 512), (3, 128)):
+        want = jax_tree.make_notes(seed, n_frames * 512 / 16000)
+        got = eval_boundary.make_notes(seed, n_frames)
+        assert _fields(got) == _fields(want)
+
+
+def test_longform_piece_is_the_jax_tools(jax_e2e, jax_tree):
+    """The piece and its label as tools/eval_longform.py:50-59 builds them."""
+    seed, seconds = 3_000_000, 6.0
+    notes = jax_tree.make_notes(seed, seconds)
+    audio = jax_e2e.render_notes_v2(notes, int(seconds * 16000),
+                                    np.random.RandomState(1_000_000 + seed))
+    n_frames = len(audio) // 512
+    label, _ = j_rasterize_arrays(np.array([n.onset for n in notes]),
+                                  np.array([n.offset for n in notes]),
+                                  np.array([n.pitch for n in notes]), n_frames, 512, 16000,
+                                  21, 108)
+    got_notes, got_audio, got_label = eval_longform.longform_piece(seed, seconds)
+    assert _fields(got_notes) == _fields(notes)
+    assert np.array_equal(got_audio, audio) and np.array_equal(got_label, label)
+    assert got_label.sum() > 0
+
+
+def test_eval_longform_on_the_fixture(tmp_path):
+    out = eval_longform.main([f"ckpt={FIXTURE}", "seconds=3", "overlaps=4,0", "device=cpu",
+                              "model.frames=16", f"out={tmp_path / 'longform.json'}"])
+    assert set(out["results"]) == {"overlap_4", "overlap_0"}
+    assert out["n_frames"] == 3 * 16000 // 512 and _finite(out)
+    assert json.loads((tmp_path / "longform.json").read_text()) == out
+
+
+@pytest.fixture(scope="module")
+def small_tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("synth")
+    make_synthetic_tree.write_tree(root, n_train=1, n_test=2, seconds=1.024)
+    return root
+
+
+@pytest.mark.parametrize("band", ["mask=4,12", "fmask=2,6"])  # the fixture has 12 mel bins
+def test_eval_inpainting_on_the_fixture(small_tree, band, tmp_path):
+    out = eval_inpainting.main([f"ckpt={FIXTURE}", f"root={small_tree}", band, "seq=8192",
+                                "batch=4", "device=cpu", "model.frames=16",
+                                f"tmpdir={tmp_path}"])
+    assert set(out["results"]) == {"transcription", "inpainting", "generation"}
+    # two recordings of 32 frames: four butted 16-frame windows
+    assert all(r["n_windows"] == 4 for r in out["results"].values()) and _finite(out)
+    if band.startswith("fmask"):
+        k0, k1 = out["mask_keys"]
+        assert out["mask_mel_bins"] == [2, 6] and 0 <= k0 < k1 <= 88
+    else:
+        assert out["mask_frames"] == [4, 12]
+
+
+def test_bf16_drift_on_the_cpu():
+    """On the CPU both routes run the plain version on f32 weights: no
+    error against f32, the weights' rounding alone against the rounded."""
+    torch.manual_seed(0)
+    model = synthetic_end_to_end.build_twin({"channels": "16", "layers": "2", "frames": "32",
+                                             "timesteps": "10"})
+    torch.nn.init.normal_(model.net.output_projection.weight, std=0.1)
+    wav = torch.from_numpy(bf16_drift.held_out_waveforms(2, 32))
+    r = bf16_drift.drift(model.eval(), wav)
+    assert r["batch"] == 2 and r["steps"] == 10 and r["finite"]
+    assert r["k2_rel_f32_weights"] == 0.0 and r["loop_rel_f32_weights"] < 1e-5
+    assert r["k2_rel_bf16_weights"] > 0 and r["ref_rounding_rel"] > 0
+
+
+@pytest.mark.parametrize("module,argv", [
+    (synthetic_end_to_end, ["steps=1"]),
+    (eval_boundary, ["steps=1"]),
+    (eval_inpainting, [f"ckpt={FIXTURE}", "root=unused"]),
+    (eval_longform, [f"ckpt={FIXTURE}", "seconds=1"]),
+    (bf16_drift, [f"ckpt={FIXTURE}"]),
+], ids=["synthetic_end_to_end", "eval_boundary", "eval_inpainting", "eval_longform",
+        "bf16_drift"])
+def test_entries_refuse_a_missing_card(module, argv, monkeypatch):
+    """Each entry runs on the card unless given device=cpu, and exits on
+    device=cuda (the default) without one: it never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        module.main(argv)
