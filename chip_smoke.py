@@ -176,51 +176,66 @@ exits non-zero):
                 by K2 and by the step loop, against the plain version on the same
                 bf16-rounded weights (< 0.05) and on f32 weights (printed, not
                 gated). The cuts are listed under `reduced`
- 22. k1         the gated-stack kernel vs its plain version at the flagship
+ 22. paper      `quality.pretrain_both_pipeline smoke` (the paper's recipe:
+                unconditional pretraining, the dual-loss retrain, a w-sweep,
+                guided distillation and the student's test) at the smallest
+                width the kernels take (128 channels) and 128 frames, the
+                smoke's 2 layers, T=4, corpora and steps. First every kernel
+                at the shapes the pipeline gives it, on random weights, against
+                its plain version on the bf16-rounded weights (< 0.05, the same
+                bits on a second run; `kernels_held`): K3 + K4 at B=8, K1 at
+                the guided teacher's 16 sequences, K2 over the w-sweep's guided
+                4-step process and the 2-step one-stream student at B=8. Then
+                each stage's wall
+                seconds, K1-K4 each launched at least once (K3 as often as K4)
+                with the counters reset just before and read just after, finite
+                metrics, and the native host library on its C++ tier where the
+                host has g++
+ 23. k1         the gated-stack kernel vs its plain version at the flagship
                 shape: max|d| / max|ref| < 0.05; a second run gives the same bits
- 23. k2         the whole-process sampler vs its plain version at B=1 and at
+ 24. k2         the whole-process sampler vs its plain version at B=1 and at
                 B=2 (the batch phase 4 gives it), 200 steps, shared noise:
                 rel < 0.05; a second run gives the same bits; the step-loop
                 route (use_megakernel=False, K1 per step) against the same
                 plain trajectory, and a second loop for the same bits
- 24. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
+ 25. k2_b8      the same at B=8 (the test and serving batch: 10,240 rows in
                 each stream), guided, w=0.5: rel < 0.05, the same bits; the
                 step loop there is the sample path's inpainting batch (K1 on
                 16 sequences), held the same way
- 25. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
+ 26. k2_gen     the same at B=1 for generation_ddpm_x0 (one stream, S=1,
                 spec := -1)
- 26. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
- 27. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
+ 27. k2_ddim    the same at B=2 for cfdg_ddim_x0 (50 steps, no noise)
+ 28. k1_uncond  generation_ddpm_x0 at B=2 and at B=8 (the sample path's
                 generation batch: K1 on 8 sequences): K2 and the step loop
                 (K1 per step) against the plain trajectory, each rel < 0.05
                 and the same bits on a second run
- 28. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
+ 29. k2_student K2 as `test` runs a distilled student: B=8, ddim_x0, one
                 stream (unguided, w=0), no noise, at 9 and at 5 steps: rel <
                 0.05 and the same bits on a second run
      The k gates hold the kernels against the plain f32 versions run on the
      kernels' own weight values (the stack weights rounded to bf16). Printed
-     beside them in phase 23: the error against the unrounded f32 weights,
+     beside them in phase 24: the error against the unrounded f32 weights,
      and the plain version on rounded weights against itself on f32 weights.
- 29. k3         the training forward-with-saves kernel vs its plain version at
+ 30. k3         the training forward-with-saves kernel vs its plain version at
                 (16, 640, 512) with the (16, 640, 229) conditioner: skip, xs, a
                 each rel < 0.05; its skip output is K1's, bit for bit
- 30. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
+ 31. k1_s32     K1 as the guided teacher of a distill step runs it: (32, 640,
                 512), the conditional rows then spec := -1: rel < 0.05 and the
                 same bits on a second run
- 31. k4         the training backward kernel vs its plain version from the same
+ 32. k4         the training backward kernel vs its plain version from the same
                 saves and a seeded cotangent, with and without dcond: every
                 output leaf rel < 0.05; the worst leaf is printed; a second
                 run gives the same bits in every leaf
- 32. train_grads one loss + backward at B=16 with fixed t, noise and mask,
+ 33. train_grads one loss + backward at B=16 with fixed t, noise and mask,
                 through K3 + K4 and through the nn.Module path under autograd on
                 the bf16-rounded weights: every parameter gradient rel < 0.05,
                 the losses within 1e-2 relative
- 33. distill_grads one guided distill loss + backward at B=16 with fixed
+ 34. distill_grads one guided distill loss + backward at B=16 with fixed
                 transitions and noise: the teacher through K1 and the student
                 through K3 + K4, against both through the nn.Modules on the
                 bf16-rounded weights: every student gradient rel < 0.05, the
                 losses within 1e-2 relative
- 34. times      warm median times of the four kernels and their plain versions
+ 35. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
                 under `*_b8`), of a whole training step at B=16 by three
@@ -250,7 +265,8 @@ dp_train, dp_test and dp_distill: rank 0's counts in phase dp, mp_train and
 mp_distill: rank 0's in phase mp, serve_mesh and sp: rank 0's, sp 0 of every
 kernel; learn_fused and learn_autograd: the learning check's two routes,
 learn_cli_train, eval_inpainting_mask, eval_inpainting_fmask, eval_longform
-and eval_boundary: phase learn's tools).
+and eval_boundary: phase learn's tools; paper: the whole pipeline of phase
+paper).
 K1's `max_abs_err` is its single pass's; `max_abs_err_step_loop` is the
 largest of its step loops' 200-step trajectories against the plain ones.
 """
@@ -1943,28 +1959,39 @@ def finite_tree(tree) -> bool:
     return True
 
 
-def hold_twin_training_kernels() -> dict:
-    """K3 and K4 at the shape every training step of phase learn gives them:
-    the twin's widths (128 x 8, dilations 1-2-4-8), B=8 sequences of 128
-    frames (one row tile a sequence, the dilation halo at both ends of it),
-    the 229-bin conditioner. Held against their plain versions on the
+def random_twin(size: dict):
+    """The twin (`synthetic_end_to_end.build_twin`, `size` its overrides) on
+    the card, from seed 0, with an N(0, 0.1^2) head so its output is not 0."""
+    from diffroll_tpu_torch.quality import synthetic_end_to_end
+
+    torch.manual_seed(0)
+    twin = synthetic_end_to_end.build_twin(size)
+    torch.nn.init.normal_(twin.net.output_projection.weight, std=0.1)
+    return twin.to(torch.device("cuda"))
+
+
+def kernel_rounded(w):
+    """The stack weights as the kernels receive them: rounded to bf16."""
+    return w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+
+
+def hold_training_kernels(twin, b: int, where: str) -> dict:
+    """K3 and K4 at the shape every training step of phase `where` gives
+    them: `twin`'s widths and dilations, B=`b` sequences of its frames (one
+    row tile a sequence at 128 frames, the dilation halo at both ends of
+    it), the 229-bin conditioner. Held against their plain versions on the
     kernels' own bf16-rounded weights: K3's skip is K1's bit for bit, skip /
     xs / a and every K4 leaf (with and without dcond) below GATE, and a
     second run gives the same bits. Returns the readings; raises on a miss."""
     from diffroll_tpu_torch.ops.gated_stack import gated_stack, kernel_weights, stack_weights
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
-    from diffroll_tpu_torch.quality import synthetic_end_to_end
 
     dev = torch.device("cuda")
-    torch.manual_seed(0)
-    twin = synthetic_end_to_end.build_twin({})
-    torch.nn.init.normal_(twin.net.output_projection.weight, std=0.1)
-    twin.to(dev)
     dil, c, frames = twin.config.dilations(), twin.config.residual_channels, twin.config.frames
     w = stack_weights(twin.net)
     kw = kernel_weights(w)
-    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
-    b, n_layers = synthetic_end_to_end.BATCH, len(dil)
+    wq = kernel_rounded(w)
+    n_layers = len(dil)
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(b, frames, c, device=dev, generator=gen)
     tb = 0.1 * torch.randn(n_layers, b, c, device=dev, generator=gen)
@@ -1996,9 +2023,9 @@ def hold_twin_training_kernels() -> dict:
         ok = ok and rel < GATE and same and ("dcond" in got) == need_dcond
     out["gate"] = GATE
     if not ok:
-        phase("learn", failed_hold="twin_training_kernels", **out)
-        raise RuntimeError(f"learn: K3 or K4 at the twin's shape disagrees with its plain "
-                           f"version or with itself on a second run: {out}")
+        phase(where, failed_hold="training_kernels", **out)
+        raise RuntimeError(f"{where}: K3 or K4 at the path's training shape disagrees with "
+                           f"its plain version or with itself on a second run: {out}")
     return out
 
 
@@ -2016,7 +2043,7 @@ def run_learn_phase(tmp: pathlib.Path, kernels) -> dict:
     paths, routes, twin = {}, {}, None
     # the kernels of every training step below, at that step's shape, against
     # their plain versions (these launches are not counted: each path resets)
-    twin_hold = hold_twin_training_kernels()
+    twin_hold = hold_training_kernels(random_twin({}), synthetic_end_to_end.BATCH, "learn")
     # (a) the learning check at the JAX defaults, twice from the same init and
     # draws: K3 + K4, then autograd through the f32 modules (TF32 is off)
     for fused in (1, 0):
@@ -2116,6 +2143,119 @@ def run_learn_phase(tmp: pathlib.Path, kernels) -> dict:
                            f"the plain version on the same bf16-rounded weights: {bad}")
     del twin
     return paths
+
+
+PAPER_KEYS = ["model.residual_channels=128", "model.frames=128",
+              "dataset.sequence_length=65536"]   # the kernels' widths; the smoke's 2 layers
+PAPER_SIZE = {"layers": "2", "timesteps": "4"}     # the smoke's depth and T, at PAPER_KEYS
+PAPER_BATCH = 8            # COMMON's train and test batches; the guided teacher runs 2 x 8
+
+
+def hold_paper_kernels() -> dict:
+    """The kernels at the shapes phase paper gives them: the smoke's net (2
+    layers) at 128 channels, 128 frames and T=4, on random weights. K3 + K4
+    at the training batch (every stage, twice a step in the dual retrain),
+    K1 at the guided distillation teacher's 2 x 8 sequences, K2 over the
+    w-sweep's guided process (cfdg_ddpm_x0, w=0.5, noise drawn) and the
+    2-step student's one-stream ddim_x0 as `test` samples it, at B=8. Each
+    against its plain version on the kernels' bf16-rounded weights below
+    GATE, with the same bits on a second run. Returns the readings; raises
+    on a miss."""
+    from diffroll_tpu_torch.diffusion.samplers import SAMPLER_TABLE
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack, gated_stack_ref
+    from diffroll_tpu_torch.ops.sampler_kernel import fused_sample, fused_sample_ref
+    from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
+
+    twin = random_twin(PAPER_SIZE)
+    mc, dev = twin.config, torch.device("cuda")
+    out = {"training": hold_training_kernels(twin, PAPER_BATCH, "paper")}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    s, dil = 2 * PAPER_BATCH, mc.dilations()
+    task = DiffusionTask(twin, TaskConfig(timesteps=mc.timesteps))
+    w, _, kw, *_ = task._fused_weights()
+    wq = kernel_rounded(w)
+    x = torch.randn(s, mc.frames, mc.residual_channels, device=dev, generator=gen)
+    tb = 0.1 * torch.randn(len(dil), s, mc.residual_channels, device=dev, generator=gen)
+    cond = torch.rand(s, mc.frames, mc.n_mels, device=dev, generator=gen)
+    with torch.no_grad():
+        k1 = gated_stack(x, tb, cond, w, dil, kweights=kw)
+        k1_same = torch.equal(k1, gated_stack(x, tb, cond, w, dil, kweights=kw))
+        k1_rel, k1_abs = rel_err(k1, gated_stack_ref(x, tb, cond, wq, dil))
+    out["k1_teacher"] = {"shape": list(x.shape), "rel": k1_rel, "max_abs_err": k1_abs,
+                         "same_bits_on_rerun": k1_same}
+    ok = k1_rel < GATE and k1_same
+    window_s = mc.frames * mc.mel.hop_length / mc.mel.sample_rate
+    wav = torch.stack([torch.from_numpy(chord_wav(window_s, mc.mel.sample_rate, SEED + 62 + i))
+                       for i in range(PAPER_BATCH)]).to(dev)
+    for name, sampler, steps, w_mix in (("k2_wsweep", "cfdg_ddpm_x0", None, 0.5),
+                                        ("k2_student", "ddim_x0", 2, 0.0)):
+        task = DiffusionTask(twin, TaskConfig(timesteps=mc.timesteps, sampling_type=sampler,
+                                              sampling_steps=steps, w=w_mix))
+        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        guided = bool(SAMPLER_TABLE[sampler][2])
+        x_T = torch.randn(PAPER_BATCH, mc.frames, mc.pitches, device=dev, generator=gen)
+        noise = (torch.randn((tables.shape[0],) + tuple(x_T.shape), device=dev, generator=gen)
+                 if stochastic else None)
+        with torch.no_grad():
+            cond = task.build_conditioner(x_T, wav)
+            args = (x_T, noise, t_bias, tables, w, head, cond, dil, guided, w_mix, stochastic)
+            got = fused_sample(*args, kweights=kw)
+            same = torch.equal(got, fused_sample(*args, kweights=kw))
+            ref = fused_sample_ref(x_T, noise, t_bias, tables, kernel_rounded(w), *args[5:])
+        torch.cuda.synchronize()
+        rel, abs_err = rel_err(got, ref)
+        finite = bool(torch.isfinite(got).all())
+        out[name] = {"batch": PAPER_BATCH, "sampler": sampler, "steps": tables.shape[0],
+                     "streams": 2 if guided else 1, "noise": stochastic, "rel": rel,
+                     "max_abs_err": abs_err, "same_bits_on_rerun": same, "finite": finite}
+        ok = ok and rel < GATE and same and finite
+    out["gate"] = GATE
+    if not ok:
+        phase("paper", failed_hold="paper_kernels", **out)
+        raise RuntimeError(f"paper: K1 or K2 at the pipeline's shapes disagrees with its plain "
+                           f"version or with itself on a second run: {out}")
+    return out
+
+
+def run_paper_phase(tmp: pathlib.Path, kernels) -> dict:
+    """Phase paper: `quality.pretrain_both_pipeline smoke` on the card at the
+    smallest width the kernels take (128 channels: K4's 128 x 128 tiles) and
+    one row tile a sequence (128 frames), the smoke's depth, steps and
+    corpora: pretraining, the dual retrain, the w-sweep, a guided
+    distillation and the student's test. Returns its launches."""
+    import shutil
+
+    from diffroll_tpu_torch import native
+    from diffroll_tpu_torch.quality import pretrain_both_pipeline
+
+    # every kernel at the shapes below, against its plain version (these
+    # launches are not counted: the counts are reset after)
+    held = hold_paper_kernels()
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    out = pretrain_both_pipeline.main([
+        "smoke", f"paired={tmp / 'paper_paired'}", f"unpaired={tmp / 'paper_unpaired'}",
+        f"out={tmp / 'paper_out'}", *PAPER_KEYS, "device=cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches(kernels)
+    native_tier = native.available()
+    phase("paper", seconds=seconds, kernels_held=held, stage_seconds=out["walls_s"],
+          launches=launches,
+          native_cpp_tier=native_tier, wsweep_note_f1=[r["note_f1"] for r in out["wsweep"]],
+          students={n: {k: m[k] for k in ("n_clips", "note_f1", "frame_f1")}
+                    for n, m in out["students"].items()},
+          reduced="the script's smoke sizes (8 + 2 clips a tree, 2 layers, T=4, one epoch a "
+                  "stage, 200 distill steps to a 2-step student) at 128 channels and 128 frames")
+    if not all(launches[fn.__name__] > 0 for fn in kernels) or \
+            launches["fwd_saves"] != launches["bwd"]:
+        raise RuntimeError(f"paper: the pipeline skipped a kernel: {launches}")
+    if shutil.which("g++") and not native_tier:
+        raise RuntimeError("paper: the native library fell back to numpy on a host with g++")
+    if not (finite_tree(out["students"]) and out["students"] and finite_tree(
+            {str(i): r for i, r in enumerate(out["wsweep"])})):
+        raise RuntimeError(f"paper: non-finite metrics {out}")
+    return launches
 
 
 def main() -> int:
@@ -2306,6 +2446,7 @@ def main() -> int:
         path_launches["serve_mesh"] = run_serve_mesh_phase(tmp, ckpt, all_kernels)
         path_launches["sp"] = run_sp_phase(tmp, ckpt, all_kernels)
         path_launches.update(run_learn_phase(tmp, all_kernels))
+        path_launches["paper"] = run_paper_phase(tmp, all_kernels)
 
     net = model.net
     dil = mc.dilations()
@@ -2315,7 +2456,7 @@ def main() -> int:
     # stack weights rounded to bf16, as the kernels receive them), so the
     # gate measures the kernels' arithmetic; the f32-weight numbers are
     # reported beside them
-    wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
+    wq = kernel_rounded(w)
     head = head_weights(net)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 

@@ -60,13 +60,12 @@ def extract_notes(
 
     n_t = active.shape[0]
     pitches, intervals = [], []
-    # positions of inactive frames per pitch; a note started at `t` ends at
-    # the first inactive frame >= t (or T)
+    # positions of inactive frames per pitch, then T; a note started at `t`
+    # ends at the first of them >= t (a key active in every frame ends at T)
     for pitch in np.unique(p_locs):
-        inactive = np.nonzero(~active[:, pitch])[0]
+        inactive = np.append(np.nonzero(~active[:, pitch])[0], n_t)
         starts = t_locs[p_locs == pitch]
-        idx = np.searchsorted(inactive, starts, side="left")
-        ends = np.where(idx < len(inactive), inactive[np.minimum(idx, len(inactive) - 1)], n_t)
+        ends = inactive[np.searchsorted(inactive, starts, side="left")]
         for s, e in zip(starts, ends):
             if e > s:
                 pitches.append(pitch)

@@ -10,16 +10,25 @@ toolchain (`g++ -O3 -march=native -shared -fPIC`) into `_build/` — the
 binary is never distributed (gitignored), so host-specific codegen is
 safe. A cached binary is reused only when its build fingerprint (source
 hash + compiler identity + flags) matches; a binary from a different
-host or toolchain is recompiled, never dlopened. Every entry point has a
-pure-numpy fallback, so missing compilers degrade gracefully.
+host or toolchain is recompiled, never dlopened. Processes that reach
+first use together (loader workers, data-axis ranks, test workers) build
+once: a valid cache is loaded without a lock; otherwise each holds an
+exclusive `flock` on `_build/.lock` from the fingerprint check until the
+library is loaded, and the compiler writes a pid-tagged temporary file that
+`os.replace` moves into place before the fingerprint is written. Every
+entry point has a pure-numpy fallback for a host without `g++` (or a
+`_build/` it cannot write); a library that was built but cannot be loaded
+raises.
 `diffroll_tpu_torch.native.available()` reports which tier is active.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import math
+import os
 import pathlib
 import subprocess
 import threading
@@ -60,14 +69,57 @@ def _fingerprint() -> Optional[str]:
 
 
 def _compile(fpr: str) -> bool:
-    _BUILD.mkdir(exist_ok=True)
-    cmd = ["g++", *_CXX_FLAGS, str(_SRC), "-o", str(_LIB_PATH)]
+    """Build into a pid-tagged temporary file and move it into place, then
+    the fingerprint the same way: a reader never sees a half-written
+    library, and a matching fingerprint always names a whole one. The
+    caller holds the build lock."""
+    tag = f".{os.getpid()}.tmp"
+    lib_tmp = _LIB_PATH.with_name(_LIB_PATH.name + tag)
+    fpr_tmp = _FPR_PATH.with_name(_FPR_PATH.name + tag)
+    cmd = ["g++", *_CXX_FLAGS, str(_SRC), "-o", str(lib_tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        _FPR_PATH.write_text(fpr)
+        os.replace(lib_tmp, _LIB_PATH)
+        fpr_tmp.write_text(fpr)
+        os.replace(fpr_tmp, _FPR_PATH)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        lib_tmp.unlink(missing_ok=True)
+        fpr_tmp.unlink(missing_ok=True)
+
+
+def _open_cached(fpr: str) -> Optional[ctypes.CDLL]:
+    """The cached library when its fingerprint is `fpr`, else None. The
+    fingerprint is written only after its library is in place, so a match
+    names a whole library: one that then fails to `dlopen` raises."""
+    if not (_LIB_PATH.exists() and _FPR_PATH.exists()
+            and _FPR_PATH.read_text().strip() == fpr):
+        return None
+    try:
+        return ctypes.CDLL(str(_LIB_PATH))
+    except OSError as err:
+        raise RuntimeError(f"the native library {_LIB_PATH} was built for this host "
+                           f"but cannot be loaded: {err}") from err
+
+
+def _build_locked(fpr: str) -> Optional[ctypes.CDLL]:
+    """Build under an exclusive `flock` on `_build/.lock`, held until the
+    library is loaded: the first process compiles, the others wait and then
+    find the cache valid. None (the numpy tier) when the directory cannot be
+    written or the compile fails."""
+    try:
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        lock_file = open(_BUILD / ".lock", "a")
+    except OSError:
+        return None
+    with lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        lib = _open_cached(fpr)
+        if lib is None and _compile(fpr):
+            lib = _open_cached(fpr)
+        return lib
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -75,17 +127,14 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _tried:
             return _lib
-        _tried = True
         fpr = _fingerprint()
-        if fpr is None:
-            return None
-        cached = (_LIB_PATH.exists() and _FPR_PATH.exists()
-                  and _FPR_PATH.read_text().strip() == fpr)
-        if not cached and not _compile(fpr):
-            return None
-        try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
+        # a valid cache loads without the lock, so a checkout whose `_build/`
+        # cannot be written still takes the C++ tier
+        lib = None if fpr is None else _open_cached(fpr)
+        if lib is None and fpr is not None:
+            lib = _build_locked(fpr)
+        if lib is None:
+            _tried = True
             return None
 
         f32p = ctypes.POINTER(ctypes.c_float)
@@ -105,7 +154,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.extract_notes.argtypes = [u8p, u8p, i64, i64, i32,
                                       i32p, i32p, i32p]
         lib.extract_notes.restype = i64
-        _lib = lib
+        _lib, _tried = lib, True
         return _lib
 
 
@@ -186,12 +235,17 @@ def extract_notes(
     onsets: np.ndarray, frames: np.ndarray, rule1: bool = True,
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Native note-event decoder over thresholded (T, P) bool rolls;
-    returns (pitches, intervals) or None when unavailable."""
+    returns (pitches, intervals) or None when unavailable. `frames` is
+    broadcast to the onsets' shape, as the numpy tier's `onset_diff &= fr`
+    broadcasts it (a scalar or a (P,) row holds for every step); a shape
+    that does not broadcast raises. The scan reads T x P bytes of each."""
     lib = _load()
     if lib is None:
         return None
     on = np.ascontiguousarray(onsets, np.uint8)
-    fr = np.ascontiguousarray(frames, np.uint8)
+    if on.ndim != 2:
+        raise ValueError(f"onsets must be a (T, P) roll, got shape {on.shape}")
+    fr = np.ascontiguousarray(np.broadcast_to(np.asarray(frames, np.uint8), on.shape))
     t_len, p_len = on.shape
     cap = t_len * p_len
     out_p = np.empty(cap, np.int32)

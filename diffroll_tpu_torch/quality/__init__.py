@@ -17,6 +17,18 @@ the script's own file name:
     (`tools/eval_longform.py`)
   * `bf16_drift`            a trained model's reverse process through the
     kernels against the plain version on f32 and on bf16-rounded weights
+  * `flax_init`             `train` from the JAX package's initial weight
+    distributions (zero biases, LeCun dense weights)
+
+and the runners of the JAX package's recorded experiments, each chaining
+the port's CLI entries in one process:
+
+  * `paper_sweeps`          F1 over spec dropout p and over guidance w, and
+    inpainting on the p = 0.1 model (`results/{psweep,wsweep,inpainting}_synthetic_v2`)
+  * `pretrain_both_pipeline` unconditional pretraining, the dual-loss retrain,
+    a w-sweep and guided distillation (`tools/pretrain_both_pipeline.sh`)
+  * `fullsize_distill`      the full-width flagship trained, distilled and
+    scored at five operating points (`results/fullsize_distill_tpu/*.sh`)
 
 The renderers are numpy only and give the JAX scripts' bits. Training and
 scoring run through the port's entries: K3 + K4 (or autograd) to train, K2

@@ -2,7 +2,8 @@
 `eval/notes`, `native`) against the JAX package's, on one synthetic tree
 written here: the same files give exactly the same items, batches, rolls
 and notes. Also `to_device`, the port's own step from a numpy batch to
-tensors."""
+tensors. Both packages' native tiers are held to C++ where `g++` is present
+(`torch_native_tiers`)."""
 
 import json
 import pathlib
@@ -21,6 +22,7 @@ from diffroll_tpu_torch import native as tnative
 from diffroll_tpu_torch.eval import notes as tnotes
 from diffroll_tpu_torch.io import midi as tmidi
 from diffroll_tpu_torch.io import wav as twav
+from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
 SR, HOP = 16000, 512
 NOTES = [(60, 0.5, 1.0), (64, 1.0, 2.0), (67, 2.5, 3.0), (43, 0.1, 3.7)]
@@ -142,10 +144,15 @@ def test_rasterize_and_notes_match():
     rng = np.random.default_rng(0)
     roll = (rng.random((200, 88)) > 0.7).astype(np.float32) * rng.random((200, 88)).astype(
         np.float32)
-    for a, b in zip(tnotes.extract_notes(roll, 0.5), jnotes.extract_notes(roll, 0.5)):
+    # the roll is both the onsets and the frames, as the pipeline decodes it
+    got = tnotes.extract_notes(roll, roll, 0.5, 0.5)
+    assert len(got[0]) > 0
+    for a, b in zip(got, jnotes.extract_notes(roll, roll, 0.5, 0.5)):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(tnotes.extract_notes_reference_loop(roll, 0.5),
-                    jnotes.extract_notes_reference_loop(roll, 0.5)):
+    for a, b in zip(tnotes.extract_notes_reference_loop(roll, roll, 0.5, 0.5),
+                    jnotes.extract_notes_reference_loop(roll, roll, 0.5, 0.5)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, tnotes.extract_notes_reference_loop(roll, roll, 0.5, 0.5)):
         np.testing.assert_array_equal(a, b)
 
 
@@ -175,8 +182,11 @@ def test_native_copy_matches():
     rng = np.random.default_rng(1)
     x = rng.standard_normal(44100).astype(np.float32)
     np.testing.assert_array_equal(tnative.resample(x, 44100, SR), jnative.resample(x, 44100, SR))
-    roll = (rng.random((120, 88)) > 0.6).astype(np.float32)
-    for a, b in zip(tnative.extract_notes(roll, 0.5) or (), jnative.extract_notes(roll, 0.5) or ()):
+    roll = rng.random((120, 88)) > 0.6
+    got, want = tnative.extract_notes(roll, roll), jnative.extract_notes(roll, roll)
+    assert (got is None) == (want is None) == (not tnative.available())
+    assert got is None or len(got[0]) > 0
+    for a, b in zip(got or (), want or ()):
         np.testing.assert_array_equal(a, b)
     if tnative.available():
         src = pathlib.Path(tnative.__file__).parent

@@ -11,6 +11,7 @@ from diffroll_tpu.eval import f1 as jf1
 from diffroll_tpu_torch import eval as teval
 from diffroll_tpu_torch.eval import evaluate as tevaluate
 from diffroll_tpu_torch.eval import f1 as tf1
+from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
 EXACT = 1e-12
 

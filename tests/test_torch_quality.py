@@ -23,8 +23,9 @@ from diffroll_tpu.dsp import mel as jmel
 from diffroll_tpu.eval.evaluate import evaluate_rolls as j_evaluate_rolls
 from diffroll_tpu_torch.dsp.mel import MelConfig
 from diffroll_tpu_torch.quality import (
-    bf16_drift, eval_boundary, eval_inpainting, eval_longform, make_synthetic_tree,
-    synthetic_end_to_end)
+    bf16_drift, eval_boundary, eval_inpainting, eval_longform, flax_init, fullsize_distill,
+    make_synthetic_tree, paper_sweeps, pretrain_both_pipeline, synthetic_end_to_end)
+from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -257,6 +258,20 @@ def test_eval_inpainting_on_the_fixture(small_tree, band, tmp_path):
         assert out["mask_frames"] == [4, 12]
 
 
+def test_inpainting_cross_score_on_the_fixture(small_tree, tmp_path):
+    """`tests/inpainting_cross_score.py`: one checkpoint through the JAX tool
+    and the port's entry, both bands' conditions over the same windows."""
+    cross = _load_script("inpainting_cross_score", REPO / "tests" / "inpainting_cross_score.py")
+    out = cross.main([f"ckpt={FIXTURE}", f"root={small_tree}", "mask=4,12", "seq=8192",
+                      "batch=4", "frames=16", f"out={tmp_path}"])
+    assert set(out["inside_band"]) == {"transcription", "inpainting", "generation"}
+    for pkg in ("jax", "port"):
+        assert out[pkg]["mask_frames"] == [4, 12] and out[pkg]["window_frames"] == 16
+        assert all(r["n_windows"] == 4 for r in out[pkg]["results"].values())
+    assert _finite(out["inside_band"])
+    assert json.loads((tmp_path / "cross_score.json").read_text()) == out
+
+
 def test_bf16_drift_on_the_cpu():
     """On the CPU both routes run the plain version on f32 weights: no
     error against f32, the weights' rounding alone against the rounded."""
@@ -277,11 +292,160 @@ def test_bf16_drift_on_the_cpu():
     (eval_inpainting, [f"ckpt={FIXTURE}", "root=unused"]),
     (eval_longform, [f"ckpt={FIXTURE}", "seconds=1"]),
     (bf16_drift, [f"ckpt={FIXTURE}"]),
+    (paper_sweeps, ["tree=unused"]),
+    (pretrain_both_pipeline, ["smoke", "paired=unused", "unpaired=unused"]),
+    (fullsize_distill, ["tree=unused"]),
+    (flax_init, ["spec_roll", "dataset.root=unused"]),
 ], ids=["synthetic_end_to_end", "eval_boundary", "eval_inpainting", "eval_longform",
-        "bf16_drift"])
+        "bf16_drift", "paper_sweeps", "pretrain_both_pipeline", "fullsize_distill", "flax_init"])
 def test_entries_refuse_a_missing_card(module, argv, monkeypatch):
     """Each entry runs on the card unless given device=cpu, and exits on
     device=cuda (the default) without one: it never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         module.main(argv)
+
+
+# ---------------------------------------------------------------- (7) the experiment recipes
+
+# the recipes at a tiny size: 16 x 2 nets of 32 frames (1.024 s windows)
+RECIPE_TINY = ["model.residual_channels=16", "model.residual_layers=2", "task.timesteps=10",
+               "model.frames=32", "dataset.sequence_length=16384", "trainer.max_epochs=1",
+               "trainer.check_val_every_n_epoch=1", "dataloader.train_batch_size=2",
+               "dataloader.num_workers=1", "device=cpu"]
+
+
+@pytest.fixture(scope="module")
+def recipe_tree(tmp_path_factory):
+    """Four training and two test recordings of 1.024 s: two steps an epoch."""
+    root = tmp_path_factory.mktemp("recipe_tree")
+    make_synthetic_tree.write_tree(root, n_train=4, n_test=2, seconds=1.024)
+    return root
+
+
+def test_stage_checkpoint_finds_the_newest_run_and_its_best(tmp_path):
+    """As `find <out> -type d -name checkpoints | sort | tail -1`, then the
+    newest monitored checkpoint in it, else `last`."""
+    old = tmp_path / "2026-01-01" / "10-00-00" / "train-x" / "checkpoints"
+    new = tmp_path / "2026-01-02" / "09-00-00" / "train-x" / "checkpoints"
+    for d in (old, new):
+        d.mkdir(parents=True)
+        (d / "last.ckpt").write_bytes(b"")
+    assert paper_sweeps.stage_checkpoint(tmp_path) == new / "last.ckpt"
+    (new / "step_000000300.ckpt").write_bytes(b"")
+    (new / "step_000000600.ckpt").write_bytes(b"")
+    assert paper_sweeps.stage_checkpoint(tmp_path) == new / "step_000000600.ckpt"
+    with pytest.raises(FileNotFoundError):
+        paper_sweeps.stage_checkpoint(tmp_path / "empty")
+
+
+def test_paper_sweeps_tiny(tmp_path):
+    """Three p points, the w-sweeps of the p = 0, 0.1 and 0.5 models and both
+    inpainting bands on p = 0.1, through `sweep` and `eval_inpainting`. The
+    time band 48-80 needs the recipe's 128-frame window: one 4.096 s window a
+    recording."""
+    tree = tmp_path / "tree"
+    make_synthetic_tree.write_tree(tree, n_train=4, n_test=2, seconds=4.096)
+    out = paper_sweeps.main([f"tree={tree}", f"out={tmp_path / 'out'}", "p_grid=[0.0,0.1,0.5]",
+                             "w_grid=[0.0,0.5]", *RECIPE_TINY, "model.frames=128",
+                             "dataset.sequence_length=65536"])
+    assert [r["spec_dropout"] for r in out["p_sweep"]] == [0.0, 0.1, 0.5]
+    assert set(out["w_rows"]) == {"0", "0.1", "0.5"}
+    assert all([r["w"] for r in rows] == [0.0, 0.5] for rows in out["w_rows"].values())
+    assert set(out["inpainting"]) == {"mask=48,80", "fmask=29,51"}
+    assert set(out["walls_s"]) == {"tree", "p_sweep", "w_sweep_p0", "w_sweep_p0.1",
+                                   "w_sweep_p0.5", "inpainting_mask", "inpainting_fmask"}
+    assert json.loads((tmp_path / "out" / "paper_sweeps.json").read_text()) == out
+    assert _finite(out)
+
+
+def test_pretrain_both_pipeline_smoke(tmp_path):
+    """The script's four stages at its smoke geometry (8 x 2, T=4, 64 frames)
+    on trees of one window a clip: each stage starts from the checkpoint the
+    previous one wrote, and each student is scored."""
+    for name, seed in (("paired", 0), ("unpaired", 7)):
+        make_synthetic_tree.write_tree(tmp_path / name, n_train=8, n_test=2, seconds=2.048,
+                                       seed=seed)
+    out = pretrain_both_pipeline.main([
+        "smoke", f"paired={tmp_path / 'paired'}", f"unpaired={tmp_path / 'unpaired'}",
+        f"out={tmp_path / 'out'}", "distill.steps_per_stage=3", "dataloader.num_workers=1",
+        "device=cpu"])
+    assert "/pretrain/" in out["pretrain_ckpt"] and "/retrain_both/" in out["retrain_ckpt"]
+    assert [r["w"] for r in out["wsweep"]] == [0.0, 0.5]
+    assert set(out["students"]) == {"2"} and out["students"]["2"]["n_clips"] == 2
+    assert {"corpora", "pretrain", "retrain_both", "wsweep", "distill",
+            "distill_eval_2"} == set(out["walls_s"]) and _finite(out)
+    hparams = torch.load(out["retrain_ckpt"], map_location="cpu", weights_only=False)
+    assert hparams["hyper_parameters"]["port_config"]["model"]["spec_dropout"] == 0.1
+
+
+def test_fullsize_distill_tiny(recipe_tree, tmp_path):
+    """The teacher trained, two stages distilled, and the points scored in the
+    scoring script's order, one row each."""
+    out = fullsize_distill.main([f"tree={recipe_tree}", f"out={tmp_path}", *RECIPE_TINY,
+                                 "distill.start_steps=5", "distill.stages=2",
+                                 "distill.steps_per_stage=2"])
+    assert [r["point"] for r in out["scores"]] == [
+        "distilled@3", "teacher ddim_x0@3", "teacher cfdg_ddpm_x0 dense", "distilled@5"]
+    assert [r["sampling_steps"] for r in out["scores"]] == [3, 3, None, 5]
+    assert all(r["n_clips"] == 2 for r in out["scores"]) and _finite(out)
+    assert json.loads((tmp_path / "scores.json").read_text()) == out["scores"]
+
+
+def _spreads(named):
+    """(std x sqrt(fan_in) of every 2-D dense weight, largest |bias|)."""
+    dense = [float(np.std(w) * math.sqrt(w.shape[0])) for n, w in named if n == "dense"]
+    return dense, max(float(np.abs(b).max()) for n, b in named if n == "bias")
+
+
+def test_flax_init_draws_the_jax_packages_distributions():
+    """After `flax_init_` the port's dense weights have the JAX package's
+    spread (LeCun: std x sqrt(fan_in) = 1, the truncated normal rescaled) and
+    every bias is 0, as in the JAX package's init; before it, PyTorch's
+    (kaiming-uniform: ~0.58) and nonzero biases."""
+    import jax
+
+    from diffroll_tpu import models as jmodels
+
+    size = dict(residual_channels=64, residual_layers=2, frames=32, timesteps=10)
+    params = jmodels.build("ClassifierFreeDiffRoll", **size).init(jax.random.key(0))
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    jax_named = [("dense" if path[-1].key == "kernel" and leaf.ndim == 2 else
+                  "bias" if path[-1].key == "bias" else "other", np.asarray(leaf))
+                 for path, leaf in leaves]
+    torch.manual_seed(0)
+    net = synthetic_end_to_end.build_twin({"channels": "64", "layers": "2", "frames": "32",
+                                          "timesteps": "10"}).net
+
+    def port_named():
+        out = []
+        for m in net.modules():
+            if isinstance(m, torch.nn.Linear):
+                out.append(("dense", m.weight.detach().numpy().T))
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)) and m.bias is not None:
+                out.append(("bias", m.bias.detach().numpy()))
+        return out
+
+    jax_dense, jax_bias = _spreads(jax_named)
+    before_dense, before_bias = _spreads(port_named())
+    flax_init.flax_init_(net)
+    after_dense, after_bias = _spreads(port_named())
+    assert len(after_dense) == len(jax_dense) and jax_bias == 0.0 == after_bias
+    assert before_bias > 0.01 and all(0.5 < d < 0.65 for d in before_dense)
+    for got, want in zip(sorted(after_dense), sorted(jax_dense)):
+        assert abs(got - want) < 0.06 and 0.9 < got < 1.1
+
+
+def test_flax_init_trains_through_train(recipe_tree, tmp_path):
+    """The entry is `train` from the re-drawn start: one epoch on the CPU. Its
+    biases start at 0, so after a step or two of Adam (lr 1e-3 at most) they
+    stay far under PyTorch's draws (up to 1/sqrt(fan_in): 0.06-0.25 here)."""
+    state = flax_init.main(["spec_roll", f"dataset.root={recipe_tree}", "model.residual_channels=16",
+                            "model.residual_layers=2", "model.frames=32", "task.timesteps=10",
+                            "dataset.sequence_length=16384", "dataloader.train_batch_size=2",
+                            "dataloader.num_workers=1", "trainer.max_epochs=1",
+                            "task.fused_train=true", "device=cpu",
+                            f"trainer.output_dir={tmp_path}"])
+    assert 1 <= state.step <= 2
+    biases = [p.detach() for n, p in state.model.net.named_parameters() if n.endswith(".bias")]
+    assert biases and max(float(b.abs().max()) for b in biases) < 0.005

@@ -29,6 +29,7 @@ from diffroll_tpu_torch.config import compose as t_compose
 from diffroll_tpu_torch.io.midi import read_midi
 from diffroll_tpu_torch.tasks import DiffusionTask as TTask
 from diffroll_tpu_torch.tasks import TaskConfig as TTaskConfig
+from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]

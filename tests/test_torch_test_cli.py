@@ -32,6 +32,7 @@ from diffroll_tpu_torch.cli import train as train_cli
 from diffroll_tpu_torch.compat import peek_hparams, read_ckpt, state_dict_from_jax
 from diffroll_tpu_torch.config import from_argv as t_from_argv
 from diffroll_tpu_torch.tasks import DiffusionTask as TTask
+from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
