@@ -232,20 +232,30 @@ def _no_tensor(*args, **kwargs):
     return None
 
 
-def peek_hparams(path: str) -> Dict[str, Any]:
-    """A checkpoint's `hyper_parameters`, coerced to plain Python, read
-    without loading any tensor: of a torch zip archive only the pickle is
-    read (the storages stay on disk); an older single-pickle file is read
-    whole."""
+def _peek(path: str) -> Dict[str, Any]:
+    """A checkpoint's top-level dict read without loading any tensor (each
+    comes back as None): of a torch zip archive only the pickle is read (the
+    storages stay on disk); an older single-pickle file is read whole."""
     if not zipfile.is_zipfile(path):
-        return read_ckpt(path)["hyper_parameters"]
+        return read_ckpt(path)
     with zipfile.ZipFile(path) as zf:
         name = next(n for n in zf.namelist() if n.rsplit("/", 1)[-1] == "data.pkl")
         ckpt = _TensorlessUnpickler(io.BytesIO(zf.read(name))).load()
-    if not isinstance(ckpt, dict) or "state_dict" not in ckpt:
-        return {}
-    hparams = plain_hparams(ckpt.get("hyper_parameters", {}))
+    return ckpt if isinstance(ckpt, dict) and "state_dict" in ckpt else {}
+
+
+def peek_hparams(path: str) -> Dict[str, Any]:
+    """A checkpoint's `hyper_parameters`, coerced to plain Python, read
+    without loading any tensor."""
+    hparams = plain_hparams(_peek(path).get("hyper_parameters", {}))
     return hparams if isinstance(hparams, dict) else {}
+
+
+def peek_global_step(path: str) -> Optional[int]:
+    """The `global_step` a checkpoint records (the optimizer steps behind its
+    weights), read without loading any tensor; None where it records none."""
+    step = _peek(path).get("global_step")
+    return None if step is None else int(step)
 
 
 def weights_only(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

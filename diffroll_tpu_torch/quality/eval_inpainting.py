@@ -33,7 +33,8 @@ Keys with a dot (`model.frames=16`) go to the config and over the
 checkpoint's model config as they are.
 
 Windows are butted (eval_overlap_frames=0), so the band sits at the same
-frames of every window. Each condition samples through `DiffusionTask.sample`
+frames of every window. The payload names the checkpoint file and the
+`global_step` it records, the training step whose weights were scored. Each condition samples through `DiffusionTask.sample`
 (K2 on the card, K1 inside it); x_T and the per-step noise come from a
 generator seeded 7, the same draws for every condition.
 """
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from ..cli import _common
+from ..compat import peek_global_step
 from ..config import compose
 from ..dsp.mel import MelConfig, hz_to_mel_htk, mel_to_hz_htk
 from ..eval.evaluate import evaluate_rolls
@@ -167,8 +169,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
               f"frame_f1={inside['frame_f1']:.3f} | outside note_f1={outside['note_f1']:.3f} "
               f"frame_f1={outside['frame_f1']:.3f}", file=sys.stderr, flush=True)
 
-    payload = {"ckpt": ckpt, "w": w, "window_frames": win, "eval_overlap_frames": 0,
-               "results": results}
+    payload = {"ckpt": ckpt, "global_step": peek_global_step(ckpt), "w": w,
+               "window_frames": win, "eval_overlap_frames": 0, "results": results}
     if fmask is None:
         payload["mask_frames"] = [t0, t1]
     else:

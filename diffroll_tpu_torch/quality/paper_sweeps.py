@@ -22,9 +22,11 @@ unless `device=cpu` is given; `device=cuda` without a card exits.
 
 `p_grid=` and `w_grid=` change the grids (`p_grid` must hold the w-swept
 p = 0, 0.1 and 0.5); dotted keys (`trainer.max_epochs=1`) go to every
-`train` and `sweep` call after the recipe's own. The summary,
-with each stage's wall seconds, lands in `<out>/paper_sweeps.json` and as
-the last stdout line.
+`train` and `sweep` call after the recipe's own. The summary, with each
+stage's wall seconds and, under `stage_checkpoints`, each checkpoint a later
+stage started from with its `global_step` (the p-sweep's scores are the
+post-fit test's, on each run's final weights), lands in
+`<out>/paper_sweeps.json` and as the last stdout line.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 
 from ..cli import _common
 from ..cli import sweep as sweep_cli
+from ..compat import peek_global_step
 from ..train import Checkpointer
 from . import eval_inpainting, make_synthetic_tree
 from .synthetic_end_to_end import log, parse_args
@@ -86,6 +89,15 @@ def ensure_tree(root: pathlib.Path, n_train: int = 192, n_test: int = 12,
                                        seed=seed)
 
 
+def p_sweep_argv(tree: pathlib.Path, out: pathlib.Path, p_grid: str, device: str,
+                 extra: List[str]) -> List[str]:
+    """The p-sweep's `sweep` call: one `train` run of the recipe (84 epochs of
+    24 steps, validated every 21) per p of `p_grid`, under `<out>/p_sweep/`."""
+    return ["spec_roll", f"p_grid={p_grid}", f"dataset.root={tree}", *MODEL, *COMMON,
+            "trainer.max_epochs=84", "trainer.check_val_every_n_epoch=21",
+            f"trainer.output_dir={out}", device, *extra]
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     device = args.get("device", "cuda")
@@ -98,13 +110,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     walls: Dict[str, float] = {}
 
     timed(walls, "tree", ensure_tree, tree)
-    p_rows = timed(walls, "p_sweep", sweep_cli.main, [
-        "spec_roll", f"p_grid={args.get('p_grid', P_GRID)}", f"dataset.root={tree}", *MODEL,
-        *COMMON, "trainer.max_epochs=84", "trainer.check_val_every_n_epoch=21",
-        f"trainer.output_dir={out / 'psweep'}", dev, *extra])
+    p_rows = timed(walls, "p_sweep", sweep_cli.main,
+                   p_sweep_argv(tree, out / "psweep", args.get("p_grid", P_GRID), dev, extra))
+
+    stage_ckpts: Dict[str, Dict] = {}
 
     def ckpt(p: float) -> pathlib.Path:
-        return stage_checkpoint(out / "psweep" / "p_sweep" / f"p{p:g}")
+        path = stage_checkpoint(out / "psweep" / "p_sweep" / f"p{p:g}")
+        stage_ckpts[f"p{p:g}"] = {"file": str(path), "global_step": peek_global_step(str(path))}
+        return path
 
     w_rows = {}
     for p in W_ROWS:
@@ -122,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             f"tmpdir={out / 'inpainting'}", dev, *model_keys])
 
     summary = {"device": device, "tree": str(tree), "walls_s": walls, "p_sweep": p_rows,
-               "w_rows": w_rows, "inpainting": inpainting}
+               "stage_checkpoints": stage_ckpts, "w_rows": w_rows, "inpainting": inpainting}
     out.mkdir(parents=True, exist_ok=True)
     (out / "paper_sweeps.json").write_text(json.dumps(summary, indent=2))
     print(json.dumps(summary))

@@ -256,6 +256,7 @@ def test_eval_inpainting_on_the_fixture(small_tree, band, tmp_path):
         assert out["mask_mel_bins"] == [2, 6] and 0 <= k0 < k1 <= 88
     else:
         assert out["mask_frames"] == [4, 12]
+    assert out["ckpt"] == str(FIXTURE) and out["global_step"] == 100_000  # the fixture's record
 
 
 def test_inpainting_cross_score_on_the_fixture(small_tree, tmp_path):
@@ -269,7 +270,42 @@ def test_inpainting_cross_score_on_the_fixture(small_tree, tmp_path):
         assert out[pkg]["mask_frames"] == [4, 12] and out[pkg]["window_frames"] == 16
         assert all(r["n_windows"] == 4 for r in out[pkg]["results"].values())
     assert _finite(out["inside_band"])
+    assert out["global_step"] == out["port"]["global_step"] == 100_000
     assert json.loads((tmp_path / "cross_score.json").read_text()) == out
+
+
+def test_inpainting_cross_score_reads_a_jax_checkpoint(small_tree, tmp_path):
+    """A JAX run's checkpoints directory: scored by the JAX tool alone at the
+    step asked for (`last`, or a monitored `step_<N>`), its step read from the
+    state the tool restored; `export=` writes it as a port `.ckpt` whose
+    weights are the JAX state's and whose step is recorded."""
+    import jax
+    from diffroll_tpu.cli import train as jax_train
+    from diffroll_tpu.train.checkpoint import Checkpointer as JCheckpointer
+    from diffroll_tpu_torch.compat import peek_global_step, read_ckpt, state_dict_from_jax
+
+    make_synthetic_tree.write_tree(tmp_path / "tree", n_train=2, n_test=1, seconds=1.024)
+    jax_train.main(["spec_roll", f"dataset.root={tmp_path / 'tree'}", *RECIPE_TINY[:5],
+                    "trainer.max_epochs=2", "trainer.check_val_every_n_epoch=1",
+                    "dataloader.train_batch_size=1", "dataloader.num_workers=1",
+                    f"trainer.output_dir={tmp_path / 'jax'}"])
+    ckpts = sorted((tmp_path / "jax").rglob("checkpoints"))[-1]
+    best = JCheckpointer(ckpts).latest_step()
+    cross = _load_script("inpainting_cross_score", REPO / "tests" / "inpainting_cross_score.py")
+    common = [f"ckpt={ckpts}", f"root={small_tree}", "mask=4,12", "seq=16384", "batch=4",
+              "frames=32"]
+    out = cross.main([*common, "step=last", f"out={tmp_path / 'last'}"])
+    assert out["global_step"] == 4 and set(out) == {"ckpt", "global_step", "inside_band", "jax"}
+    assert all(r["n_windows"] == 2 for r in out["jax"]["results"].values())
+    assert cross.main([*common, f"out={tmp_path / 'best'}"])["global_step"] == best
+    dst = tmp_path / "jax_cpu_s0_last.ckpt"
+    assert cross.main([*common, "step=last", f"export={dst}",
+                       f"out={tmp_path / 'export'}"])["global_step"] == 4
+    assert peek_global_step(str(dst)) == 4
+    state = cross.jax_load(cross.jax_checkpoint(str(ckpts), "last", tmp_path / "x"), 32)[3]
+    want = state_dict_from_jax(jax.tree.map(np.asarray, state.params))
+    got = read_ckpt(str(dst))["state_dict"]
+    assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_bf16_drift_on_the_cpu():
@@ -357,6 +393,27 @@ def test_paper_sweeps_tiny(tmp_path):
                                    "w_sweep_p0.5", "inpainting_mask", "inpainting_fmask"}
     assert json.loads((tmp_path / "out" / "paper_sweeps.json").read_text()) == out
     assert _finite(out)
+    # each stage checkpoint with the step it holds: one epoch of two steps
+    assert set(out["stage_checkpoints"]) == {"p0", "p0.1", "p0.5"}
+    assert all(c["global_step"] == 2 for c in out["stage_checkpoints"].values())
+    assert all(r["global_step"] == 2 and r["ckpt"] == out["stage_checkpoints"]["p0.1"]["file"]
+               for r in out["inpainting"].values())
+
+
+def test_eval_inpainting_names_the_step_it_scored(recipe_tree, tmp_path):
+    """A run of 2 epochs of 2 steps, validated each epoch: `last.ckpt` holds
+    step 4, the monitored checkpoint its own step, and each payload says
+    which."""
+    from diffroll_tpu_torch.cli import train as train_cli
+
+    train_cli.main(["spec_roll", f"dataset.root={recipe_tree}", *RECIPE_TINY,
+                    "trainer.max_epochs=2", f"trainer.output_dir={tmp_path / 'run'}"])
+    best = paper_sweeps.stage_checkpoint(tmp_path / "run")
+    for ckpt, step in ((best.parent / "last.ckpt", 4), (best, int(best.stem.split("_")[1]))):
+        out = eval_inpainting.main([f"ckpt={ckpt}", f"root={recipe_tree}", "mask=4,12",
+                                    "seq=16384", "batch=2", "device=cpu",
+                                    f"tmpdir={tmp_path / 'eval'}"])
+        assert out["ckpt"] == str(ckpt) and out["global_step"] == step
 
 
 def test_pretrain_both_pipeline_smoke(tmp_path):

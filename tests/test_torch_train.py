@@ -307,3 +307,120 @@ def test_ema_update_matches_jax_lambda():
     for name, ref in want.items():
         np.testing.assert_allclose(ema_t[name].numpy(), ref.numpy(), atol=1e-6, rtol=1e-6,
                                    err_msg=name)
+
+
+# ------------------------------------------------------------ the fit loop
+
+FIT_EPOCHS, FIT_STEPS, FIT_VAL, FIT_LR = 3, 4, 2, 1e-3
+
+
+class _JaxDraws:
+    """The port task's `loss_fn` fed the draws of the JAX fit loop: `keys`
+    holds, in the order the JAX loop used them, each train step's and each
+    validation batch's key; every port call takes the next key and hands its
+    t, noise and dropout mask over, as `_jax_draws` recomputes them."""
+
+    def __init__(self, task, keys):
+        self.task, self.keys = task, iter(keys)
+
+    def loss_fn(self, batch, generator, train):
+        kind, key = next(self.keys)
+        assert kind == ("train" if train else "eval")
+        bsz, frames = batch["frame"].shape[:2]
+        t_key, n_key, d_key = jax.random.split(key, 3)
+        t = jax.random.randint(t_key, (bsz,), 0, STEPS)
+        noise = jax.random.normal(n_key, (bsz, frames, 88), jnp.float32)
+        mask = j_spec_dropout_mask(d_key, bsz, self.task.model.config.spec_dropout)
+        return self.task.loss_fn(batch, generator, train,
+                                 t=torch.from_numpy(np.array(t)),
+                                 noise=torch.from_numpy(np.array(noise)),
+                                 uncond_mask=torch.from_numpy(np.array(mask)))
+
+
+def _saves_recorded(checkpointer, saves):
+    """Record the steps `checkpointer` saves, 'last' for a rolling save."""
+    save, save_last = checkpointer.save, checkpointer.save_last
+
+    def rec(step, *a, **kw):
+        saves.append(int(step))
+        return save(step, *a, **kw)
+
+    def rec_last(*a, **kw):
+        saves.append("last")
+        return save_last(*a, **kw)
+
+    checkpointer.save, checkpointer.save_last = rec, rec_last
+    return checkpointer
+
+
+def test_fit_matches_jax_fit(tmp_path, monkeypatch):
+    """The port's `fit` against the JAX `fit` over 3 epochs of 4 steps, each
+    validated (2 batches) with monitored saves, on the same weights, batches
+    and draws (each JAX train step's and validation batch's key, kept by
+    wrapping the JAX step functions, handed to the port as t, noise and
+    dropout mask): the parameters after every epoch within the f32 gates
+    (atol 1e-4, rtol 1e-3), and the same checkpoints saved at the same
+    steps."""
+    from diffroll_tpu.config.experiment import TrainerConfig as JTrainerConfig
+    from diffroll_tpu.train import loop as jloop
+    from diffroll_tpu.train.checkpoint import Checkpointer as JCheckpointer
+    from diffroll_tpu.train.state import TrainState as JTrainState
+    from diffroll_tpu_torch.config.experiment import TrainerConfig as TTrainerConfig
+    from diffroll_tpu_torch.train import Checkpointer as TCheckpointer
+    from diffroll_tpu_torch.train import fit as tfit
+
+    jm, params, tm = _pair(layers=2)
+    batches = [_batch(20 + i) for i in range(FIT_STEPS + FIT_VAL)]
+    train, val = batches[:FIT_STEPS], batches[FIT_STEPS:]
+    cfg = dict(timesteps=STEPS, training_mode="x_0", lr=FIT_LR)
+    trainer = dict(max_epochs=FIT_EPOCHS, check_val_every_n_epoch=1, log_every_n_steps=1000,
+                   seed=0)
+
+    keys = []
+    real_train, real_eval = jloop.make_train_step, jloop.make_eval_step
+
+    def train_step_keeping_keys(*a, **kw):
+        step = real_train(*a, **kw)
+
+        def keep(state, batch, key):
+            keys.append(("train", key))
+            return step(state, batch, key)
+        return keep
+
+    def eval_step_keeping_keys(*a, **kw):
+        step = real_eval(*a, **kw)
+
+        def keep(p, batch, key):
+            keys.append(("eval", key))
+            return step(p, batch, key)
+        return keep
+
+    monkeypatch.setattr(jloop, "make_train_step", train_step_keeping_keys)
+    monkeypatch.setattr(jloop, "make_eval_step", eval_step_keeping_keys)
+    tx = j_make_optimizer(FIT_LR)
+    jepochs, jsaves = [], []
+    jloop.fit(JTask(jm, JTaskConfig(**cfg)), JTrainState.create(params, tx), train, tx,
+              trainer=JTrainerConfig(**trainer), val_loader=val,
+              checkpointer=_saves_recorded(JCheckpointer(tmp_path / "jax"), jsaves),
+              val_hook=lambda s, b: jepochs.append(jax.tree.map(np.asarray, s.params)))
+    assert [k for k, _ in keys] == (["train"] * FIT_STEPS + ["eval"] * FIT_VAL) * FIT_EPOCHS
+
+    tepochs, tsaves = [], []
+    state = TrainState.create(tm, FIT_LR)
+    before = {n: p.detach().clone() for n, p in tm.net.named_parameters()}
+    tfit(_JaxDraws(TTask(tm, TTaskConfig(**cfg)), keys), state, [_tb(b) for b in train],
+         trainer=TTrainerConfig(**trainer), val_loader=[_tb(b) for b in val],
+         checkpointer=_saves_recorded(TCheckpointer(tmp_path / "port"), tsaves),
+         val_hook=lambda s, b: tepochs.append(
+             {n: p.detach().clone() for n, p in s.model.net.named_parameters()}))
+    assert state.step == FIT_EPOCHS * FIT_STEPS
+
+    assert len(tepochs) == len(jepochs) == FIT_EPOCHS
+    for epoch, (got, ref) in enumerate(zip(tepochs, jepochs)):
+        for name, want in state_dict_from_jax(ref).items():
+            np.testing.assert_allclose(got[name].numpy(), want.numpy(), atol=1e-4, rtol=1e-3,
+                                       err_msg=f"epoch {epoch} {name}")
+    assert any(float((tepochs[-1][n] - before[n]).abs().max()) > 1e-3 for n in before)
+    assert tsaves == jsaves and tsaves[-1] == "last" and any(s != "last" for s in tsaves)
+    kept = sorted(int(p.stem.split("_")[1]) for p in (tmp_path / "port").glob("step_*.ckpt"))
+    assert kept == sorted(int(p.name.split("_")[1]) for p in (tmp_path / "jax").glob("step_*"))
