@@ -169,7 +169,8 @@ exits non-zero):
                 tree (32 + 8 recordings of 4.096 s), `cli.train.main spec_roll` at
                 the twin's widths (~1000 steps at B=8, K3 + K4), then on its
                 checkpoint `eval_inpainting` (mask=48,80 and fmask=29,51: K2 3
-                times each), `eval_longform` (60 s, cut from 180: K2 5 times) and
+                times each; `scored_step`, the step of the weights it scored,
+                must be the run's last), `eval_longform` (60 s, cut from 180: K2 5 times) and
                 `eval_boundary` (steps=1000 n_train=64 n_long=2, cut from 4000,
                 128, 8: K3 + K4 1000 times, K2 4): finite metrics. (c) the
                 trained twin of (a)'s fused route, 100 guided steps at B=1 and B=8
@@ -186,8 +187,8 @@ exits non-zero):
                 bits on a second run; `kernels_held`): K3 + K4 at B=8, K1 at
                 the guided teacher's 16 sequences, K2 over the w-sweep's guided
                 4-step process and the 2-step one-stream student at B=8. Then
-                each stage's wall
-                seconds, K1-K4 each launched at least once (K3 as often as K4)
+                each stage's wall seconds, the step of each checkpoint a later
+                stage started from (`stage_steps`), K1-K4 each launched at least once (K3 as often as K4)
                 with the counters reset just before and read just after, finite
                 metrics, and the native host library on its C++ tier where the
                 host has g++
@@ -2124,6 +2125,12 @@ def run_learn_phase(tmp: pathlib.Path, kernels) -> dict:
             phase("learn", failed_tool=name, **tools[name])
             raise RuntimeError(f"learn: {name} gave non-finite metrics or launched "
                                f"{paths[name]} (K2 {k2_calls}, K3 / K4 {k34_calls} expected)")
+        if name.startswith("eval_inpainting"):
+            # the training step whose weights the band scores read: last.ckpt's
+            tools[name]["scored_step"] = out["global_step"]
+            if out["global_step"] != tools["cli_train"]["steps"]:
+                raise RuntimeError(f"learn: {name} scored step {out['global_step']}, "
+                                   f"not the run's last ({tools['cli_train']['steps']})")
 
     # (c) the trained twin's 100-step guided process at B=1 and B=8, K2 and the
     # step loop against the plain version on the same bf16-rounded weights
@@ -2226,6 +2233,7 @@ def run_paper_phase(tmp: pathlib.Path, kernels) -> dict:
     import shutil
 
     from diffroll_tpu_torch import native
+    from diffroll_tpu_torch.compat import peek_global_step
     from diffroll_tpu_torch.quality import pretrain_both_pipeline
 
     # every kernel at the shapes below, against its plain version (these
@@ -2240,8 +2248,10 @@ def run_paper_phase(tmp: pathlib.Path, kernels) -> dict:
     seconds = time.perf_counter() - t0
     launches = kernel_launches(kernels)
     native_tier = native.available()
+    # the step of each checkpoint a later stage started from
+    stage_steps = {k: peek_global_step(out[k]) for k in ("pretrain_ckpt", "retrain_ckpt")}
     phase("paper", seconds=seconds, kernels_held=held, stage_seconds=out["walls_s"],
-          launches=launches,
+          launches=launches, stage_steps=stage_steps,
           native_cpp_tier=native_tier, wsweep_note_f1=[r["note_f1"] for r in out["wsweep"]],
           students={n: {k: m[k] for k in ("n_clips", "note_f1", "frame_f1")}
                     for n, m in out["students"].items()},

@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .init import dense
+
 
 def build_table(max_steps: int, dim: int = 128) -> np.ndarray:
     """Sin/cos table, shape (max_steps, dim)."""
@@ -40,8 +42,8 @@ class DiffusionEmbedding(nn.Module):
         self.register_buffer("embedding",
                              torch.from_numpy(build_table(max_steps, dim)),
                              persistent=False)
-        self.projection1 = nn.Linear(dim, proj_dim)
-        self.projection2 = nn.Linear(proj_dim, proj_dim)
+        self.projection1 = dense(dim, proj_dim)
+        self.projection2 = dense(proj_dim, proj_dim)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x = lookup(self.embedding, t)

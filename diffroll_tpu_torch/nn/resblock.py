@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.model_axis import column, full_param
+from .init import dense, he_normal
 
 SQRT_HALF = 0.7071067811865476
 
@@ -41,17 +42,13 @@ def _same_padding(kernel_size: int, dilation: int) -> int:
 
 
 def conv1d(in_ch: int, out_ch: int, kernel_size: int, **kw) -> nn.Conv1d:
-    """Conv1d with the reference's kaiming-normal weight init."""
-    conv = nn.Conv1d(in_ch, out_ch, kernel_size, **kw)
-    nn.init.kaiming_normal_(conv.weight)
-    return conv
+    """Conv1d drawn as the JAX package's `_conv_init` draws it (nn/init.py)."""
+    return he_normal(nn.Conv1d(in_ch, out_ch, kernel_size, **kw))
 
 
 def conv2d(in_ch: int, out_ch: int, kernel_size: int, **kw) -> nn.Conv2d:
-    """Conv2d with the reference's kaiming-normal weight init."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel_size, **kw)
-    nn.init.kaiming_normal_(conv.weight)
-    return conv
+    """Conv2d drawn as the JAX package's `_conv_init` draws it (nn/init.py)."""
+    return he_normal(nn.Conv2d(in_ch, out_ch, kernel_size, **kw))
 
 
 def _cast(dtype: Optional[torch.dtype], *tensors: torch.Tensor):
@@ -82,7 +79,7 @@ class ResidualBlock(nn.Module):
         self.dilated_conv = conv1d(c, 2 * c, kernel_size,
                                    padding=_same_padding(kernel_size, dilation),
                                    dilation=dilation)
-        self.diffusion_projection = nn.Linear(emb_dim, c)
+        self.diffusion_projection = dense(emb_dim, c)
         self.trainable_z = conditional and trainable_z
         if conditional:
             self.conditioner_projection = conv1d(n_cond, 2 * c, 1)
@@ -132,7 +129,7 @@ class ResidualBlock2D(nn.Module):
         self.dilated_conv = conv2d(c, 2 * c, kernel_size,
                                    padding=_same_padding(kernel_size, dilation),
                                    dilation=dilation)
-        self.diffusion_projection = nn.Linear(emb_dim, c)
+        self.diffusion_projection = dense(emb_dim, c)
         if conditional:
             self.conditioner_projection = conv2d(1, 2 * c, 1)
         self.output_projection = conv2d(c, 2 * c, 1)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .init import dense, lecun_normal
+
 GN_EPS = 1e-6    # flax nn.GroupNorm's default (PyTorch's is 1e-5)
 HEADS, DIM_HEAD = 4, 32
 
@@ -39,7 +41,7 @@ def group_norm(channels: int, groups: int = 1) -> nn.GroupNorm:
 
 def conv(in_ch: int, out_ch: int, k: int, groups: int = 1, bias: bool = True) -> nn.Conv2d:
     """A stride-1 'SAME' convolution (odd k)."""
-    return nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias)
+    return lecun_normal(nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias))
 
 
 def _same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -54,6 +56,7 @@ class Downsample(nn.Conv2d):
 
     def __init__(self, dim: int):
         super().__init__(dim, dim, 4, stride=2)
+        lecun_normal(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (h0, h1), (w0, w1) = (_same_padding(n, 4, 2) for n in x.shape[-2:])
@@ -65,7 +68,7 @@ def upsample(dim: int) -> nn.ConvTranspose2d:
     transpose_kernel=False correlates the zero-dilated input, padded by 2, with
     the kernel as it is; ConvTranspose2d(4, 2, padding=1) is the same with the
     kernel flipped in both spatial axes, which `state_dict_from_jax` does."""
-    return nn.ConvTranspose2d(dim, dim, 4, stride=2, padding=1)
+    return lecun_normal(nn.ConvTranspose2d(dim, dim, 4, stride=2, padding=1))
 
 
 class SinusoidalTimeEmbedding(nn.Module):
@@ -75,8 +78,8 @@ class SinusoidalTimeEmbedding(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.half = dim // 2
-        self.linear1 = nn.Linear(2 * self.half, 4 * dim)
-        self.linear2 = nn.Linear(4 * dim, 4 * dim)
+        self.linear1 = dense(2 * self.half, 4 * dim)
+        self.linear2 = dense(4 * dim, 4 * dim)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         freqs = torch.exp(torch.arange(self.half, device=t.device, dtype=torch.float32)
@@ -94,7 +97,7 @@ class ConvNextBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_dim: int, mult: int = 2):
         super().__init__()
         self.ds_conv = conv(dim_in, dim_in, 7, groups=dim_in)
-        self.time_mlp = nn.Linear(time_dim, dim_in)
+        self.time_mlp = dense(time_dim, dim_in)
         self.norm1 = group_norm(dim_in)
         self.conv1 = conv(dim_in, dim_out * mult, 3)
         self.norm2 = group_norm(dim_out * mult)
@@ -117,7 +120,7 @@ class ResnetBlock(nn.Module):
         super().__init__()
         self.conv1 = conv(dim_in, dim_out, 3)
         self.norm1 = group_norm(dim_out, groups)
-        self.time_mlp = nn.Linear(time_dim, dim_out)
+        self.time_mlp = dense(time_dim, dim_out)
         self.conv2 = conv(dim_out, dim_out, 3)
         self.norm2 = group_norm(dim_out, groups)
         self.res_conv = conv(dim_in, dim_out, 1) if dim_in != dim_out else None
@@ -267,7 +270,7 @@ class SpecConvNextBlock(nn.Module):
         else:
             self.spec_ds_conv = conv(spec_in, spec_in, 7, groups=spec_in)
             spec_mid = spec_in
-        self.time_mlp = nn.Linear(time_dim, dim_in)
+        self.time_mlp = dense(time_dim, dim_in)
         for prefix, width in (("net_", dim_in), ("spec_net_", spec_mid)):
             self.add_module(f"{prefix}norm1", group_norm(width))
             self.add_module(f"{prefix}conv1", conv(width, dim_out * mult, 3))
@@ -308,7 +311,7 @@ class SpecUnetNet(nn.Module):
         self.init_conv = conv(1, init_dim, 7)
         self.spec_init_conv = conv(1, init_dim, 7)
         # the mel axis projected to the key axis, so the two streams align
-        self.spec_init_fc = nn.Linear(n_mels, pitches)
+        self.spec_init_fc = dense(n_mels, pitches)
         self.time_mlp = SinusoidalTimeEmbedding(dim)
         for i, (d_in, d_out) in enumerate(in_out):
             self.add_module(f"down_{i}_block1", block(d_in, d_out))

@@ -7,7 +7,7 @@ scorer, each score beside the training step whose weights it read.
         [key.sub=value ...]
     python tests/inpainting_seeds.py score <file.ckpt | directory> ... \\
         [tree=outputs/psweep_tree] [out=outputs/inpainting_seeds] [device=cuda|cpu]
-    python tests/inpainting_seeds.py tally <score's or cross_score's .json> ... [band=mask=48,80]
+    python tests/inpainting_seeds.py tally <score's or cross_score's .json> ... [vs=jax]
 
 `train` writes the recipe's tree where `tree=` has none, then runs
 `paper_sweeps`' p-sweep stage (`sweep spec_roll p_grid=[0.1]`: 128 x 8,
@@ -20,10 +20,7 @@ the JAX scripts and `paper_sweeps` score), and it writes each run's post-fit
 test scores to `<out>/train.json`. With `init=<dir>` each run starts from
 `<dir>/init_s<seed>.ckpt` (`tests/train_lockstep.py init` writes the JAX
 package's initial weights of a seed so) instead of the port's own draw;
-with `init=flax` from the port's own draw with its biases, dense and conv
-kernels re-drawn from the JAX package's distributions
-(`quality.flax_init.flax_init_`), `init=flax:bias,dense` (say) only those
-parts; `package=` names its checkpoints (`<package>_<device>_s<seed>_...`).
+`package=` names its checkpoints (`<package>_<device>_s<seed>_...`).
 
 `score` runs `quality.eval_inpainting` at w=0.5 on every `.ckpt` it is given
 (a directory: each `.ckpt` in it, sorted) for both of `paper_sweeps`' bands
@@ -36,7 +33,7 @@ each condition's note and frame F1 inside and outside each band. The last
 stdout line is JSON: the inside-band inpainting note F1 of each group of
 rows (scorer, package, platform, which) with its mean and standard
 deviation, and Welch's t of each group against the JAX package's group of
-the same scorer and checkpoint. `tally` prints the same groups over
+the same scorer and checkpoint (`vs=` names another package). `tally` prints the same groups over
 `score`'s `scores.json` files and `tests/inpainting_cross_score.py`'s
 `cross_score.json` files (the JAX tool's scores, named for the checkpoint
 file, or for a JAX checkpoints directory for the directory the summary is
@@ -47,7 +44,6 @@ The script imports only the port and runs on the card unless `device=cpu`.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import math
@@ -76,20 +72,16 @@ def train(seeds: List[int], tree: pathlib.Path, out: pathlib.Path, device: str,
           extra: List[str], init: Optional[pathlib.Path] = None,
           package: str = "port") -> List[Dict]:
     from diffroll_tpu_torch.cli import sweep as sweep_cli
-    from diffroll_tpu_torch.quality import flax_init, paper_sweeps
+    from diffroll_tpu_torch.quality import paper_sweeps
 
-    # init=flax[:parts]: the port's own start with `parts` re-drawn as Flax does
-    flax = (str(init).partition(":")[2] or ",".join(flax_init.PARTS)).split(",") \
-        if init is not None and str(init).startswith("flax") else None
     paper_sweeps.ensure_tree(tree)
     (out / "ckpts").mkdir(parents=True, exist_ok=True)
     rows = []
     for seed in seeds:
         run = out / f"s{seed}"
-        start = [] if init is None or flax else [f"pretrained_path={init / f'init_s{seed}.ckpt'}"]
-        with flax_init.flax_start(flax) if flax else contextlib.nullcontext():
-            p_row, = sweep_cli.main(paper_sweeps.p_sweep_argv(
-                tree, run, "[0.1]", f"device={device}", [*extra, f"trainer.seed={seed}", *start]))
+        start = [] if init is None else [f"pretrained_path={init / f'init_s{seed}.ckpt'}"]
+        p_row, = sweep_cli.main(paper_sweeps.p_sweep_argv(
+            tree, run, "[0.1]", f"device={device}", [*extra, f"trainer.seed={seed}", *start]))
         best = paper_sweeps.stage_checkpoint(run)
         for which, src in (("last", best.parent / "last.ckpt"), ("best", best)):
             slim_copy(src, out / "ckpts" / f"{package}_{device}_s{seed}_{which}.ckpt")
@@ -150,9 +142,23 @@ def welch_t(a: List[float], b: List[float]) -> Optional[float]:
     return float((np.mean(a) - np.mean(b)) / se) if se > 0 else None
 
 
-def groups(rows: List[Dict], band: str = "mask=48,80") -> Dict[str, Dict]:
+def band_means(rows: List[Dict]) -> Dict[str, Dict[str, float]]:
+    """The mean note F1 of `rows`, for each band they were all scored at, of
+    inpainting inside and outside the band and of transcription inside it."""
+    out = {}
+    for band in sorted({k for r in rows for k in r if "=" in k}):
+        if all(band in r for r in rows):
+            out[band] = {f"{cond}_{side}": float(np.mean([r[band][cond][side]["note_f1"]
+                                                          for r in rows]))
+                         for cond, side in (("inpainting", "inside"),
+                                            ("inpainting", "outside"),
+                                            ("transcription", "inside"))}
+    return out
+
+
+def groups(rows: List[Dict], band: str = "mask=48,80", vs: str = "jax") -> Dict[str, Dict]:
     """The inside-band inpainting note F1 of each (scorer, package, platform,
-    which), its mean, sd, and Welch's t against the JAX package's rows of the
+    which), its mean, sd, and Welch's t against the rows of package `vs` of the
     same scorer and `which`."""
     def key(r):
         return (r["scorer"], r.get("package", "?"), r.get("platform", "?"), r.get("which", "?"))
@@ -164,12 +170,13 @@ def groups(rows: List[Dict], band: str = "mask=48,80") -> Dict[str, Dict]:
         out["/".join(k)] = {"seeds": [r.get("seed") for r in rs],
                             "steps": [r["global_step"] for r in rs], "note_f1": vals,
                             "mean": float(np.mean(vals)),
-                            "sd": float(np.std(vals, ddof=1)) if len(vals) > 1 else None}
+                            "sd": float(np.std(vals, ddof=1)) if len(vals) > 1 else None,
+                            "band_means": band_means(rs)}
     for name, g in out.items():
         scorer, package, _, which = name.rsplit("/", 3)
-        ref = next((n for n in out if n.startswith(f"{scorer}/jax/") and n.endswith("/" + which)),
+        ref = next((n for n in out if n.startswith(f"{scorer}/{vs}/") and n.endswith("/" + which)),
                    None)
-        if package != "jax" and ref is not None:
+        if package != vs and ref is not None:
             g["vs"], g["welch_t"] = ref, welch_t(g["note_f1"], out[ref]["note_f1"])
     return out
 
@@ -189,7 +196,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 continue
             device = "cpu" if scores["device"] == "cpu" else "cuda"
             rows += [{"scorer": f"eval_inpainting/{device}", **r} for r in scores["rows"]]
-        summary = {"groups": groups(rows, args.get("band", "mask=48,80"))}
+        summary = {"groups": groups(rows, vs=args.get("vs", "jax"))}
         print(json.dumps(summary))
         return summary
     from diffroll_tpu_torch.cli import _common

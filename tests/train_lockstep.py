@@ -3,7 +3,7 @@
 on the same batches and the same draws, for a whole recipe.
 
     JAX_PLATFORMS=cpu python tests/train_lockstep.py dataset.root=<MAPS tree> \\
-        [out=outputs/train_lockstep] [own=t,noise,mask,val] [<the recipe's key=value ...>]
+        [out=outputs/train_lockstep] [<the recipe's key=value ...>]
     JAX_PLATFORMS=cpu python tests/train_lockstep.py init [out=...] [trainer.seed=<s> ...]
 
 The recipe defaults to the p-sweep's p=0.1 point (`paper_sweeps.MODEL` and
@@ -21,13 +21,10 @@ The recipe defaults to the p-sweep's p=0.1 point (`paper_sweeps.MODEL` and
      t, noise and dropout mask that the JAX `loss_fn` drew from the same
      call's key (`jax.random.split(key, 3)`, as `diffroll_tpu/tasks/diffusion.py`
      does; computed while the JAX run goes, kept as arrays), validation
-     included; the same checksums and weights are kept. `own=` names the streams the port draws
-     from its own generator instead: `t`, `noise`, `mask` (training), `val`
-     (every validation draw).
+     included; the same checksums and weights are kept.
   3. Both runs' `last` checkpoints are written under `<out>/ckpts/` as port
      `.ckpt` files named for `tests/inpainting_seeds.py score`
-     (`jax_cpu_s<seed>_lockstep.ckpt`, `port_cpu_s<seed>_<which>.ckpt` with
-     `which` = `lockstep`, or `own` and the streams, e.g. `ownt`).
+     (`jax_cpu_s<seed>_lockstep.ckpt`, `port_cpu_s<seed>_lockstep.ckpt`).
 
 `init` only writes the JAX `train`'s initial weights of the recipe (its
 `model.init(jax.random.key(trainer.seed))`) as `<out>/init_s<seed>.ckpt`, a
@@ -52,7 +49,6 @@ import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SNAPS = (1, 24, 504, 1008, 2016)
-STREAMS = ("t", "noise", "mask", "val")
 
 
 def recipe(args: Dict[str, str]) -> List[str]:
@@ -178,7 +174,7 @@ def jax_init(argv: List[str]):
     return jax.tree.map(np.asarray, model.init(jax.random.key(cfg.trainer.seed)))
 
 
-def run_port(argv: List[str], jax_rec: Dict, own: List[str], out: pathlib.Path) -> Dict:
+def run_port(argv: List[str], jax_rec: Dict, out: pathlib.Path) -> Dict:
     import torch
 
     from diffroll_tpu_torch.cli import train as train_cli
@@ -194,11 +190,9 @@ def run_port(argv: List[str], jax_rec: Dict, own: List[str], out: pathlib.Path) 
         def fn(batch, generator, train):
             kind, d = next(jax_draws)
             if kind != ("train" if train else "eval"):
-                raise RuntimeError(f"the port asked for a {kind} draw out of turn")
-            if not train and "val" in own:
-                return loss_fn(batch, generator, train)
-            given = {kw: None if d[stream] is None or (train and stream in own)
-                     else torch.from_numpy(d[stream])
+                raise RuntimeError(f"the JAX run made a {kind} call here; "
+                                   "the port made the other kind")
+            given = {kw: None if d[stream] is None else torch.from_numpy(d[stream])
                      for stream, kw in (("t", "t"), ("noise", "noise"), ("mask", "uncond_mask"))}
             return loss_fn(batch, generator, train, **given)
         return fn
@@ -235,12 +229,9 @@ def last_scores(run: pathlib.Path) -> Dict:
 def main(argv: Optional[List[str]] = None) -> Dict:
     argv = sys.argv[1:] if argv is None else argv
     args = dict(a.split("=", 1) for a in argv if "=" in a)
-    own = [s for s in args.get("own", "").split(",") if s]
-    if set(own) - set(STREAMS):
-        raise SystemExit(f"own= takes streams of {STREAMS}")
     out = pathlib.Path(args.get("out", "outputs/train_lockstep"))
     out.mkdir(parents=True, exist_ok=True)
-    run = recipe({k: v for k, v in args.items() if k not in ("own", "out")})
+    run = recipe({k: v for k, v in args.items() if k != "out"})
     seed = setting(run, "trainer.seed")
     if "init" in argv:
         dst = out / f"init_s{seed}.ckpt"
@@ -250,7 +241,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     (out / "ckpts").mkdir(exist_ok=True)
 
     jrec = run_jax(run, out)
-    prec = run_port(run, jrec, own, out)
+    prec = run_port(run, jrec, out)
 
     from inpainting_cross_score import export_port_ckpt, jax_checkpoint
     from inpainting_seeds import slim_copy
@@ -261,13 +252,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         worst = max(float(np.abs(got[n] - r).max()) for n, r in ref.items())
         diffs[step] = {"max_abs": worst,
                        "rel": worst / max(float(np.abs(r).max()) for r in ref.values())}
-    which = "own" + "".join(own) if own else "lockstep"
     jax_dir = sorted((out / "jax").rglob("checkpoints"))[-1]
     export_port_ckpt(jax_checkpoint(str(jax_dir), "last", out), setting(run, "model.frames"),
                      out / "ckpts" / f"jax_cpu_s{seed}_lockstep.ckpt")
     port_dir = sorted((out / "port").rglob("checkpoints"))[-1]
-    slim_copy(port_dir / "last.ckpt", out / "ckpts" / f"port_cpu_s{seed}_{which}.ckpt")
-    summary = {"own": own, "steps": len(jrec["batches"]),
+    slim_copy(port_dir / "last.ckpt", out / "ckpts" / f"port_cpu_s{seed}_lockstep.ckpt")
+    summary = {"steps": len(jrec["batches"]),
                "same_batches": jrec["batches"] == prec["batches"],
                "param_diff": diffs, "saves": {"jax": jrec["saves"], "port": prec["saves"]},
                "post_fit": {"jax": last_scores(out / "jax"), "port": last_scores(out / "port")}}
