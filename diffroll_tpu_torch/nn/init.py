@@ -7,7 +7,7 @@ the reference's, draws kaiming-uniform kernels, a third of that variance. In
 the DiffRoll nets the dense layers are the timestep pathway (the diffusion
 embedding's MLP and each block's `diffusion_projection`); from PyTorch's
 draw the port's p=0.1 twins inpainted a third worse inside a band than the
-JAX package's (PERF.md section 6, PR 13). Biases and conv kernels keep the
+JAX package's (PERF.md section 6). Biases and conv kernels keep the
 reference's draws: drawn as Flax draws them (zero biases, truncated conv
 kernels) they moved neither that band nor the learning check beyond its
 spread over seeds.

@@ -15,7 +15,7 @@ p-sweep's twin is the script's) and only the training stream moves with the
 seed.
 
 With `reference=` the named parts of each seed's start are drawn again from
-PyTorch's defaults, the reference's and the port's before PR 13: biases
+PyTorch's defaults, the reference's and the port's earlier start: biases
 uniform in +-1/sqrt(fan_in), dense kernels kaiming-uniform, conv kernels
 kaiming-normal (the zero output head stays zero). `jax` runs the JAX
 package's script recipe (`examples/synthetic_end_to_end.py`, its clips, its
