@@ -17,6 +17,8 @@ the script's own file name:
     (`tools/eval_longform.py`)
   * `bf16_drift`            a trained model's reverse process through the
     kernels against the plain version on f32 and on bf16-rounded weights
+  * `flax_init`             `train` from the JAX package's initial weight
+    distributions (zero biases, LeCun dense weights)
 
 and the runners of the JAX package's recorded experiments, each chaining
 the port's CLI entries in one process:

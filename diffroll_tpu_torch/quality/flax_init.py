@@ -1,11 +1,12 @@
 """`train` from the JAX package's initial weight distributions.
 
-The port initialises its layers as the reference does (PyTorch's defaults,
-and kaiming-normal conv kernels): every conv and linear bias uniform in
-+-1/sqrt(fan_in), every linear weight kaiming-uniform (variance
-1/(3 fan_in)). The JAX package takes Flax's defaults beside the same conv
-kernels: zero biases and LeCun-normal dense kernels (variance 1/fan_in).
-This entry re-draws those two kinds of parameter as Flax does, right after
+The port draws its dense (Linear) kernels as the JAX package does (Flax's
+LeCun-normal, `nn/init.py`) and its biases and conv kernels as the reference
+does (PyTorch's defaults: every conv and linear bias uniform in
++-1/sqrt(fan_in), kaiming-normal conv kernels). The JAX package's biases
+are zero, and its conv kernels he-normal truncated at two standard
+deviations. This entry zeroes
+every bias and draws every dense kernel again as Flax does, right after
 `train` builds the model from `trainer.seed`, and then trains as `train`
 does. It exists to tell what the JAX package's checkpoints learned from
 their start apart from what they learned from their draws (ROADMAP Queue 3,

@@ -3,11 +3,10 @@ trained once per seed through the port, and checkpoints scored through one
 scorer, each score beside the training step whose weights it read.
 
     python tests/inpainting_seeds.py train seeds=0,1,2,3,4,5 [tree=outputs/psweep_tree] \\
-        [out=outputs/inpainting_seeds] [device=cuda|cpu] [init=<dir>] [package=port] \\
-        [key.sub=value ...]
+        [out=outputs/inpainting_seeds] [device=cuda|cpu] [init=<dir>] [key.sub=value ...]
     python tests/inpainting_seeds.py score <file.ckpt | directory> ... \\
         [tree=outputs/psweep_tree] [out=outputs/inpainting_seeds] [device=cuda|cpu]
-    python tests/inpainting_seeds.py tally <score's or cross_score's .json> ... [vs=jax]
+    python tests/inpainting_seeds.py tally <score's or cross_score's .json> ...
 
 `train` writes the recipe's tree where `tree=` has none, then runs
 `paper_sweeps`' p-sweep stage (`sweep spec_roll p_grid=[0.1]`: 128 x 8,
@@ -19,8 +18,7 @@ weights-only checkpoints under `<out>/ckpts/`:
 the JAX scripts and `paper_sweeps` score), and it writes each run's post-fit
 test scores to `<out>/train.json`. With `init=<dir>` each run starts from
 `<dir>/init_s<seed>.ckpt` (`tests/train_lockstep.py init` writes the JAX
-package's initial weights of a seed so) instead of the port's own draw;
-`package=` names its checkpoints (`<package>_<device>_s<seed>_...`).
+package's initial weights of a seed so) instead of the port's own draw.
 
 `score` runs `quality.eval_inpainting` at w=0.5 on every `.ckpt` it is given
 (a directory: each `.ckpt` in it, sorted) for both of `paper_sweeps`' bands
@@ -33,7 +31,7 @@ each condition's note and frame F1 inside and outside each band. The last
 stdout line is JSON: the inside-band inpainting note F1 of each group of
 rows (scorer, package, platform, which) with its mean and standard
 deviation, and Welch's t of each group against the JAX package's group of
-the same scorer and checkpoint (`vs=` names another package). `tally` prints the same groups over
+the same scorer and checkpoint. `tally` prints the same groups over
 `score`'s `scores.json` files and `tests/inpainting_cross_score.py`'s
 `cross_score.json` files (the JAX tool's scores, named for the checkpoint
 file, or for a JAX checkpoints directory for the directory the summary is
@@ -69,8 +67,7 @@ def slim_copy(src: pathlib.Path, dst: pathlib.Path) -> None:
 
 
 def train(seeds: List[int], tree: pathlib.Path, out: pathlib.Path, device: str,
-          extra: List[str], init: Optional[pathlib.Path] = None,
-          package: str = "port") -> List[Dict]:
+          extra: List[str], init: Optional[pathlib.Path] = None) -> List[Dict]:
     from diffroll_tpu_torch.cli import sweep as sweep_cli
     from diffroll_tpu_torch.quality import paper_sweeps
 
@@ -84,7 +81,7 @@ def train(seeds: List[int], tree: pathlib.Path, out: pathlib.Path, device: str,
             tree, run, "[0.1]", f"device={device}", [*extra, f"trainer.seed={seed}", *start]))
         best = paper_sweeps.stage_checkpoint(run)
         for which, src in (("last", best.parent / "last.ckpt"), ("best", best)):
-            slim_copy(src, out / "ckpts" / f"{package}_{device}_s{seed}_{which}.ckpt")
+            slim_copy(src, out / "ckpts" / f"port_{device}_s{seed}_{which}.ckpt")
         rows.append({"seed": seed, "best": best.name, **p_row})
         (out / "train.json").write_text(json.dumps(rows, indent=2))
     return rows
@@ -156,9 +153,9 @@ def band_means(rows: List[Dict]) -> Dict[str, Dict[str, float]]:
     return out
 
 
-def groups(rows: List[Dict], band: str = "mask=48,80", vs: str = "jax") -> Dict[str, Dict]:
+def groups(rows: List[Dict], band: str = "mask=48,80") -> Dict[str, Dict]:
     """The inside-band inpainting note F1 of each (scorer, package, platform,
-    which), its mean, sd, and Welch's t against the rows of package `vs` of the
+    which), its mean, sd, and Welch's t against the JAX package's rows of the
     same scorer and `which`."""
     def key(r):
         return (r["scorer"], r.get("package", "?"), r.get("platform", "?"), r.get("which", "?"))
@@ -174,9 +171,9 @@ def groups(rows: List[Dict], band: str = "mask=48,80", vs: str = "jax") -> Dict[
                             "band_means": band_means(rs)}
     for name, g in out.items():
         scorer, package, _, which = name.rsplit("/", 3)
-        ref = next((n for n in out if n.startswith(f"{scorer}/{vs}/") and n.endswith("/" + which)),
+        ref = next((n for n in out if n.startswith(f"{scorer}/jax/") and n.endswith("/" + which)),
                    None)
-        if package != vs and ref is not None:
+        if package != "jax" and ref is not None:
             g["vs"], g["welch_t"] = ref, welch_t(g["note_f1"], out[ref]["note_f1"])
     return out
 
@@ -196,7 +193,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 continue
             device = "cpu" if scores["device"] == "cpu" else "cuda"
             rows += [{"scorer": f"eval_inpainting/{device}", **r} for r in scores["rows"]]
-        summary = {"groups": groups(rows, vs=args.get("vs", "jax"))}
+        summary = {"groups": groups(rows)}
         print(json.dumps(summary))
         return summary
     from diffroll_tpu_torch.cli import _common
@@ -211,8 +208,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         seeds = [int(s) for s in args.get("seeds", "0").split(",")]
         extra = [f"{k}={v}" for k, v in args.items() if "." in k]
         init = pathlib.Path(args["init"]) if "init" in args else None
-        summary = {"device": card, "runs": train(seeds, tree, out, device, extra, init,
-                                                 args.get("package", "port"))}
+        summary = {"device": card, "runs": train(seeds, tree, out, device, extra, init)}
     else:
         paths = []
         for p in map(pathlib.Path, positional[1:]):

@@ -6,21 +6,16 @@ training stream seeded s + 1. Seed 0 is `learning_check` itself (weights 0,
 stream 1); the others show how far one run of it can fall from another.
 
     python tests/learning_seeds.py [seeds=0,1,2,3,4,5] [fused_train=1|0] [device=cuda|cpu] \
-        [init=<a port .ckpt of the twin>] [reference=bias,dense,conv]
+        [init=<a port .ckpt of the twin>]
     JAX_PLATFORMS=cpu python tests/learning_seeds.py jax [seeds=0,1,2,3,4,5]
 
 With `init=` every seed starts from that checkpoint's weights (the JAX
 script's own start is `tests/train_lockstep.py init trainer.seed=0`: the
 p-sweep's twin is the script's) and only the training stream moves with the
-seed.
-
-With `reference=` the named parts of each seed's start are drawn again from
-PyTorch's defaults, the reference's and the port's earlier start: biases
-uniform in +-1/sqrt(fan_in), dense kernels kaiming-uniform, conv kernels
-kaiming-normal (the zero output head stays zero). `jax` runs the JAX
-package's script recipe (`examples/synthetic_end_to_end.py`, its clips, its
-draws) on the CPU instead, the init from `jax.random.key(s)` and the stream
-from `key(s + 1)`; seed 0 is the script itself.
+seed. `jax` runs the JAX package's script recipe
+(`examples/synthetic_end_to_end.py`, its clips, its draws) on the CPU
+instead, the init from `jax.random.key(s)` and the stream from
+`key(s + 1)`; seed 0 is the script itself.
 
 The last stdout line is JSON: each seed's note and frame F1, their means and
 standard deviations, and the device.
@@ -29,7 +24,6 @@ standard deviations, and the device.
 from __future__ import annotations
 
 import json
-import math
 import pathlib
 import sys
 from typing import Dict, List, Optional
@@ -38,22 +32,6 @@ import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-
-
-def reference_init_(net: torch.nn.Module, parts: List[str]) -> None:
-    """Draw `parts` of `net` again as PyTorch's defaults draw them."""
-    nn = torch.nn
-    with torch.no_grad():
-        for m in net.modules():
-            if not isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)) or not m.weight.any():
-                continue
-            if "dense" in parts and isinstance(m, nn.Linear):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5))
-            if "conv" in parts and not isinstance(m, nn.Linear):
-                nn.init.kaiming_normal_(m.weight)
-            if "bias" in parts and m.bias is not None:
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                nn.init.uniform_(m.bias, -bound, bound)
 
 
 def jax_rows(seeds: List[int]) -> List[Dict]:
@@ -123,13 +101,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = TaskConfig(timesteps=se.TIMESTEPS, training_mode="x_0", loss_type="l2", lr=4e-4,
                      sampling_type="cfdg_ddpm_x0", w=0.5, fused_train=fused)
     rows = []
-    reference = [x for x in args.get("reference", "").split(",") if x]
     for seed in seeds:
         torch.manual_seed(seed)
         model = se.build_twin({})
         if "init" in args:   # a given start instead of the seed's draw
             model.net.load_state_dict(read_ckpt(args["init"])["state_dict"])
-        reference_init_(model.net, reference)
         model = model.to(device)
         se.run_training(model, cfg, train_frame, train_audio, 2000, seed=seed + 1,
                         tag=f"seed {seed}")
@@ -138,8 +114,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         rows.append({"seed": seed, "note_f1": m["note_f1"], "frame_f1": m["frame_f1"]})
         se.log(json.dumps(rows[-1]))
     return summarise({"device": torch.cuda.get_device_name(0) if device.type == "cuda"
-                      else "cpu", "package": "port", "fused_train": fused,
-                      "reference": reference}, rows)
+                      else "cpu", "package": "port", "fused_train": fused}, rows)
 
 
 def summarise(summary: Dict, rows: List[Dict]) -> Dict:

@@ -23,7 +23,7 @@ from diffroll_tpu.dsp import mel as jmel
 from diffroll_tpu.eval.evaluate import evaluate_rolls as j_evaluate_rolls
 from diffroll_tpu_torch.dsp.mel import MelConfig
 from diffroll_tpu_torch.quality import (
-    bf16_drift, eval_boundary, eval_inpainting, eval_longform, fullsize_distill,
+    bf16_drift, eval_boundary, eval_inpainting, eval_longform, flax_init, fullsize_distill,
     make_synthetic_tree, paper_sweeps, pretrain_both_pipeline, synthetic_end_to_end)
 from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
@@ -331,8 +331,9 @@ def test_bf16_drift_on_the_cpu():
     (paper_sweeps, ["tree=unused"]),
     (pretrain_both_pipeline, ["smoke", "paired=unused", "unpaired=unused"]),
     (fullsize_distill, ["tree=unused"]),
+    (flax_init, ["spec_roll", "dataset.root=unused"]),
 ], ids=["synthetic_end_to_end", "eval_boundary", "eval_inpainting", "eval_longform",
-        "bf16_drift", "paper_sweeps", "pretrain_both_pipeline", "fullsize_distill"])
+        "bf16_drift", "paper_sweeps", "pretrain_both_pipeline", "fullsize_distill", "flax_init"])
 def test_entries_refuse_a_missing_card(module, argv, monkeypatch):
     """Each entry runs on the card unless given device=cpu, and exits on
     device=cuda (the default) without one: it never falls back to the CPU."""
@@ -446,3 +447,63 @@ def test_fullsize_distill_tiny(recipe_tree, tmp_path):
     assert [r["sampling_steps"] for r in out["scores"]] == [3, 3, None, 5]
     assert all(r["n_clips"] == 2 for r in out["scores"]) and _finite(out)
     assert json.loads((tmp_path / "scores.json").read_text()) == out["scores"]
+
+
+def _spreads(named):
+    """(std x sqrt(fan_in) of every 2-D dense weight, largest |bias|)."""
+    dense = [float(np.std(w) * math.sqrt(w.shape[0])) for n, w in named if n == "dense"]
+    return dense, max(float(np.abs(b).max()) for n, b in named if n == "bias")
+
+
+def test_flax_init_draws_the_jax_packages_distributions():
+    """After `flax_init_` the port's dense weights have the JAX package's
+    spread (LeCun: std x sqrt(fan_in) = 1, the truncated normal rescaled) and
+    every bias is 0, as in the JAX package's init. Before it the dense
+    weights already have that spread (`nn/init.py` draws them so) and the
+    biases are PyTorch's, nonzero."""
+    import jax
+
+    from diffroll_tpu import models as jmodels
+
+    size = dict(residual_channels=64, residual_layers=2, frames=32, timesteps=10)
+    params = jmodels.build("ClassifierFreeDiffRoll", **size).init(jax.random.key(0))
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    jax_named = [("dense" if path[-1].key == "kernel" and leaf.ndim == 2 else
+                  "bias" if path[-1].key == "bias" else "other", np.asarray(leaf))
+                 for path, leaf in leaves]
+    torch.manual_seed(0)
+    net = synthetic_end_to_end.build_twin({"channels": "64", "layers": "2", "frames": "32",
+                                          "timesteps": "10"}).net
+
+    def port_named():
+        out = []
+        for m in net.modules():
+            if isinstance(m, torch.nn.Linear):
+                out.append(("dense", m.weight.detach().numpy().T))
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)) and m.bias is not None:
+                out.append(("bias", m.bias.detach().numpy()))
+        return out
+
+    jax_dense, jax_bias = _spreads(jax_named)
+    before_dense, before_bias = _spreads(port_named())
+    flax_init.flax_init_(net)
+    after_dense, after_bias = _spreads(port_named())
+    assert len(after_dense) == len(jax_dense) and jax_bias == 0.0 == after_bias
+    assert before_bias > 0.01 and all(0.9 < d < 1.1 for d in before_dense)
+    for got, want in zip(sorted(after_dense), sorted(jax_dense)):
+        assert abs(got - want) < 0.06 and 0.9 < got < 1.1
+
+
+def test_flax_init_trains_through_train(recipe_tree, tmp_path):
+    """The entry is `train` from the re-drawn start: one epoch on the CPU. Its
+    biases start at 0, so after a step or two of Adam (lr 1e-3 at most) they
+    stay far under PyTorch's draws (up to 1/sqrt(fan_in): 0.06-0.25 here)."""
+    state = flax_init.main(["spec_roll", f"dataset.root={recipe_tree}", "model.residual_channels=16",
+                            "model.residual_layers=2", "model.frames=32", "task.timesteps=10",
+                            "dataset.sequence_length=16384", "dataloader.train_batch_size=2",
+                            "dataloader.num_workers=1", "trainer.max_epochs=1",
+                            "task.fused_train=true", "device=cpu",
+                            f"trainer.output_dir={tmp_path}"])
+    assert 1 <= state.step <= 2
+    biases = [p.detach() for n, p in state.model.net.named_parameters() if n.endswith(".bias")]
+    assert biases and max(float(b.abs().max()) for b in biases) < 0.005
