@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .embedding import DiffusionEmbedding
+from .init import lecun_normal
 from .resblock import ResidualBlock, conv1d, pointwise
 
 
@@ -35,8 +36,10 @@ class SpectrogramUpsampler(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(1, 1, (3, 32), stride=(1, 16), padding=(1, 8))
-        self.ConvTranspose_1 = nn.ConvTranspose2d(1, 1, (3, 32), stride=(1, 16), padding=(1, 8))
+        self.ConvTranspose_0 = lecun_normal(
+            nn.ConvTranspose2d(1, 1, (3, 32), stride=(1, 16), padding=(1, 8)))
+        self.ConvTranspose_1 = lecun_normal(
+            nn.ConvTranspose2d(1, 1, (3, 32), stride=(1, 16), padding=(1, 8)))
 
     def forward(self, spec: torch.Tensor) -> torch.Tensor:
         x = spec.transpose(1, 2)[:, None]          # (B, 1, n_mels, T)

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.model_axis import column, full_param
-from .init import dense
+from .init import dense, he_normal
 
 SQRT_HALF = 0.7071067811865476
 
@@ -42,17 +42,13 @@ def _same_padding(kernel_size: int, dilation: int) -> int:
 
 
 def conv1d(in_ch: int, out_ch: int, kernel_size: int, **kw) -> nn.Conv1d:
-    """Conv1d with the reference's kaiming-normal weight init."""
-    conv = nn.Conv1d(in_ch, out_ch, kernel_size, **kw)
-    nn.init.kaiming_normal_(conv.weight)
-    return conv
+    """Conv1d drawn as the JAX package's `_conv_init` draws it (nn/init.py)."""
+    return he_normal(nn.Conv1d(in_ch, out_ch, kernel_size, **kw))
 
 
 def conv2d(in_ch: int, out_ch: int, kernel_size: int, **kw) -> nn.Conv2d:
-    """Conv2d with the reference's kaiming-normal weight init."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel_size, **kw)
-    nn.init.kaiming_normal_(conv.weight)
-    return conv
+    """Conv2d drawn as the JAX package's `_conv_init` draws it (nn/init.py)."""
+    return he_normal(nn.Conv2d(in_ch, out_ch, kernel_size, **kw))
 
 
 def _cast(dtype: Optional[torch.dtype], *tensors: torch.Tensor):

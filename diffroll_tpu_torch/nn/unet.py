@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import dense
+from .init import dense, lecun_normal
 
 GN_EPS = 1e-6    # flax nn.GroupNorm's default (PyTorch's is 1e-5)
 HEADS, DIM_HEAD = 4, 32
@@ -41,7 +41,7 @@ def group_norm(channels: int, groups: int = 1) -> nn.GroupNorm:
 
 def conv(in_ch: int, out_ch: int, k: int, groups: int = 1, bias: bool = True) -> nn.Conv2d:
     """A stride-1 'SAME' convolution (odd k)."""
-    return nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias)
+    return lecun_normal(nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias))
 
 
 def _same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -56,6 +56,7 @@ class Downsample(nn.Conv2d):
 
     def __init__(self, dim: int):
         super().__init__(dim, dim, 4, stride=2)
+        lecun_normal(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (h0, h1), (w0, w1) = (_same_padding(n, 4, 2) for n in x.shape[-2:])
@@ -67,7 +68,7 @@ def upsample(dim: int) -> nn.ConvTranspose2d:
     transpose_kernel=False correlates the zero-dilated input, padded by 2, with
     the kernel as it is; ConvTranspose2d(4, 2, padding=1) is the same with the
     kernel flipped in both spatial axes, which `state_dict_from_jax` does."""
-    return nn.ConvTranspose2d(dim, dim, 4, stride=2, padding=1)
+    return lecun_normal(nn.ConvTranspose2d(dim, dim, 4, stride=2, padding=1))
 
 
 class SinusoidalTimeEmbedding(nn.Module):

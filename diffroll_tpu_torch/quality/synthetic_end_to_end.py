@@ -226,26 +226,48 @@ class Twin:
                               frame_threshold=0.5, hop_length=HOP, sample_rate=SR)
 
 
-def learning_check(args: Dict[str, str]) -> Tuple[Dict, Twin]:
-    """The whole check; returns the JSON record and the trained twin."""
+Clips = Tuple[torch.Tensor, torch.Tensor, np.ndarray, np.ndarray]
+
+
+def check_clips(args: Dict[str, str], device: torch.device) -> Clips:
+    """The check's clips: the training audio and rolls (clip seeds 0 ..
+    n_train - 1) on `device`, the held-out audio and rolls (1000 ..) in numpy."""
+    frames_n = int(args.get("frames", FRAMES))
+    corpus = args.get("corpus", "v2")  # v2: the harder piano-shaped audio
+    train_audio, train_frame = (torch.from_numpy(a).to(device) for a in stack_clips(
+        [make_clip(i, corpus, frames_n) for i in range(int(args.get("n_train", 64)))]))
+    test_audio, test_frame = stack_clips([make_clip(1000 + i, corpus, frames_n)
+                                          for i in range(int(args.get("n_test", N_TEST)))])
+    return train_audio, train_frame, test_audio, test_frame
+
+
+def learning_check(args: Dict[str, str], seed: int = 0, clips: Optional[Clips] = None,
+                   start: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[Dict, Twin]:
+    """The whole check from `seed`: the weights drawn after
+    `torch.manual_seed(seed)`, the training stream seeded `seed + 1` (seed 0
+    is the JAX script's keys 0 and 1). `clips` is `check_clips(args,
+    device)`'s, rendered once for several seeds; `start`, a state dict of the
+    twin's net, replaces the drawn weights. Returns the JSON record and the
+    trained twin."""
     device = device_named(args.get("device", "cuda"))
     steps = int(args.get("steps", 2000))
     n_train = int(args.get("n_train", 64))
-    n_test = int(args.get("n_test", N_TEST))
     frames_n = int(args.get("frames", FRAMES))
     timesteps = int(args.get("timesteps", TIMESTEPS))
-    corpus = args.get("corpus", "v2")  # v2: the harder piano-shaped audio
+    corpus = args.get("corpus", "v2")
     dtype = args.get("dtype", "float32")
     fused = bool(int(args.get("fused_train", 1 if device.type == "cuda" else 0)))
 
-    log("building synthetic dataset...")
-    train_audio, train_frame = (torch.from_numpy(a).to(device) for a in stack_clips(
-        [make_clip(i, corpus, frames_n) for i in range(n_train)]))
-    test_audio, test_frame = stack_clips([make_clip(1000 + i, corpus, frames_n)
-                                          for i in range(n_test)])
+    if clips is None:
+        log("building synthetic dataset...")
+        clips = check_clips(args, device)
+    train_audio, train_frame, test_audio, test_frame = clips
 
-    torch.manual_seed(0)  # the weight init
-    model = build_twin(args).to(device)
+    torch.manual_seed(seed)  # the weight init
+    model = build_twin(args)
+    if start is not None:
+        model.net.load_state_dict(start)
+    model = model.to(device)
     task_config = TaskConfig(timesteps=timesteps, training_mode="x_0", loss_type="l2", lr=4e-4,
                              sampling_type="cfdg_ddpm_x0", w=0.5, fused_train=fused)
 
@@ -269,8 +291,8 @@ def learning_check(args: Dict[str, str]) -> Tuple[Dict, Twin]:
         del pre_model
 
     t0 = time.time()
-    _, losses = run_training(model, task_config, train_frame, train_audio, steps, seed=1,
-                             tag="train")
+    _, losses = run_training(model, task_config, train_frame, train_audio, steps,
+                             seed=seed + 1, tag=f"seed {seed} train")
     twin = Twin(model, task_config, torch.from_numpy(test_audio).to(device), test_frame)
 
     log("transcribing held-out clips...")
@@ -281,6 +303,7 @@ def learning_check(args: Dict[str, str]) -> Tuple[Dict, Twin]:
     m["corpus"] = corpus
     m["fused_train"] = fused
     m["device"] = device.type
+    m["seed"] = seed
     m["losses"] = {str(k): v for k, v in losses.items()}
     if pretrain_steps:
         m["pretrain_steps"] = pretrain_steps
@@ -328,6 +351,24 @@ def learning_check(args: Dict[str, str]) -> Tuple[Dict, Twin]:
             log(f"distilled@{n}: note {s_d['note_f1']:.3f} frame {s_d['frame_f1']:.3f} | "
                 f"undistilled@{n}: note {s_u['note_f1']:.3f} frame {s_u['frame_f1']:.3f}")
     return m, twin
+
+
+def over_seeds(rows: List[Dict]) -> Dict[str, Dict[str, Optional[float]]]:
+    """The mean and the sample standard deviation (None for one row) of the
+    rows' note and frame F1."""
+    out = {}
+    for k in ("note_f1", "frame_f1"):
+        v = [r[k] for r in rows]
+        out[k] = {"mean": float(np.mean(v)),
+                  "sd": float(np.std(v, ddof=1)) if len(v) > 1 else None}
+    return out
+
+
+def clears_on_mean(rows: List[Dict], note_f1: float, frame_f1: float) -> bool:
+    """Whether the mean note and frame F1 of the rows, one a seed, reach
+    `note_f1` and `frame_f1`. No single row is held to them."""
+    means = over_seeds(rows)
+    return means["note_f1"]["mean"] >= note_f1 and means["frame_f1"]["mean"] >= frame_f1
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

@@ -30,8 +30,10 @@ is where its name reads `<package>_<platform>_s<seed>_<which>.ckpt`
 each condition's note and frame F1 inside and outside each band. The last
 stdout line is JSON: the inside-band inpainting note F1 of each group of
 rows (scorer, package, platform, which) with its mean and standard
-deviation, and Welch's t of each group against the JAX package's group of
-the same scorer and checkpoint. `tally` prints the same groups over
+deviation, and the difference of its mean and Welch's t against the JAX
+package's group of the same scorer and checkpoint, or, inside mask 48-80
+where the rows hold none, against the JAX package's twelve seeds on record
+(`JAX_ON_RECORD`). `tally` prints the same groups over
 `score`'s `scores.json` files and `tests/inpainting_cross_score.py`'s
 `cross_score.json` files (the JAX tool's scores, named for the checkpoint
 file, or for a JAX checkpoints directory for the directory the summary is
@@ -48,12 +50,18 @@ import math
 import pathlib
 import re
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# The JAX package's p=0.1 twins, seeds 0-11 (trained on the CPU in f32, read at
+# step 2016): the mean, sd and count of their inpainting note F1 inside mask
+# 48-80 by each scorer (PERF.md section 6). `tally` and `score` hold a group
+# against them where the rows hold no JAX group of that scorer.
+JAX_ON_RECORD = {"eval_inpainting/cuda": (0.0953, 0.0203, 12),
+                 "jax_tool/cpu": (0.0969, 0.0163, 12)}
 NAME = re.compile(r"(?P<package>[a-z]+)_(?P<platform>[a-z]+)_s(?P<seed>\d+)_(?P<which>[a-z]+)$")
 
 
@@ -131,12 +139,14 @@ def score_one(path: pathlib.Path, tree: pathlib.Path, out: pathlib.Path, device:
     return row
 
 
-def welch_t(a: List[float], b: List[float]) -> Optional[float]:
-    """Welch's t of the means of `a` and `b` (None below two values a side)."""
-    if len(a) < 2 or len(b) < 2:
+def welch_t(a: Tuple[float, float, int], b: Tuple[float, float, int]) -> Optional[float]:
+    """Welch's t of the means of two groups, each given as (mean, sd, n) (None
+    below two values a side)."""
+    (mean_a, sd_a, n_a), (mean_b, sd_b, n_b) = a, b
+    if n_a < 2 or n_b < 2:
         return None
-    se = math.sqrt(np.var(a, ddof=1) / len(a) + np.var(b, ddof=1) / len(b))
-    return float((np.mean(a) - np.mean(b)) / se) if se > 0 else None
+    se = math.sqrt(sd_a ** 2 / n_a + sd_b ** 2 / n_b)
+    return float((mean_a - mean_b) / se) if se > 0 else None
 
 
 def band_means(rows: List[Dict]) -> Dict[str, Dict[str, float]]:
@@ -173,8 +183,16 @@ def groups(rows: List[Dict], band: str = "mask=48,80") -> Dict[str, Dict]:
         scorer, package, _, which = name.rsplit("/", 3)
         ref = next((n for n in out if n.startswith(f"{scorer}/jax/") and n.endswith("/" + which)),
                    None)
-        if package != "jax" and ref is not None:
-            g["vs"], g["welch_t"] = ref, welch_t(g["note_f1"], out[ref]["note_f1"])
+        if package == "jax":
+            continue
+        if ref is not None:
+            g["vs"], vs = ref, (out[ref]["mean"], out[ref]["sd"], len(out[ref]["note_f1"]))
+        elif band == "mask=48,80" and scorer in JAX_ON_RECORD:
+            g["vs"], vs = f"{scorer}/jax on record", JAX_ON_RECORD[scorer]
+        else:
+            continue
+        g["d"] = g["mean"] - vs[0]
+        g["welch_t"] = welch_t((g["mean"], g["sd"], len(g["note_f1"])), vs)
     return out
 
 

@@ -1,12 +1,12 @@
 """The port's learning check over seeds: `quality.synthetic_end_to_end`'s
-recipe at the JAX script's defaults (128 x 8 twin, 64 v2 clips, 2000 steps at
-lr 4e-4, B=8, 8 held-out clips scored by cfdg_ddpm_x0 at w=0.5), trained once
-per seed s with the weights drawn after `torch.manual_seed(s)` and the
-training stream seeded s + 1. Seed 0 is `learning_check` itself (weights 0,
-stream 1); the others show how far one run of it can fall from another.
+`learning_check` at the JAX script's defaults (128 x 8 twin, 64 v2 clips,
+2000 steps at lr 4e-4, B=8, 8 held-out clips scored by cfdg_ddpm_x0 at
+w=0.5), run once per seed s: the weights drawn after `torch.manual_seed(s)`,
+the training stream seeded s + 1, the clips rendered once. Seed 0 is the
+check itself; `chip_smoke.py` phase `learn` gates the mean of such seeds.
 
     python tests/learning_seeds.py [seeds=0,1,2,3,4,5] [fused_train=1|0] [device=cuda|cpu] \
-        [init=<a port .ckpt of the twin>]
+        [init=<a port .ckpt of the twin>] [<the check's other key=value options>]
     JAX_PLATFORMS=cpu python tests/learning_seeds.py jax [seeds=0,1,2,3,4,5]
 
 With `init=` every seed starts from that checkpoint's weights (the JAX
@@ -86,43 +86,28 @@ def jax_rows(seeds: List[int]) -> List[Dict]:
 def main(argv: Optional[List[str]] = None) -> Dict:
     from diffroll_tpu_torch.compat import read_ckpt
     from diffroll_tpu_torch.quality import synthetic_end_to_end as se
-    from diffroll_tpu_torch.tasks import TaskConfig
 
     args = se.parse_args(argv)
-    seeds = [int(x) for x in args.get("seeds", "0,1,2,3,4,5").split(",")]
+    seeds = [int(x) for x in args.pop("seeds", "0,1,2,3,4,5").split(",")]
     if "jax" in (sys.argv[1:] if argv is None else argv):
         return summarise({"device": "cpu", "package": "jax"}, jax_rows(seeds))
+    start = read_ckpt(args.pop("init"))["state_dict"] if "init" in args else None
     device = se.device_named(args.get("device", "cuda"))
-    fused = bool(int(args.get("fused_train", 1 if device.type == "cuda" else 0)))
-    train_audio, train_frame = (torch.from_numpy(a).to(device) for a in se.stack_clips(
-        [se.make_clip(i, "v2") for i in range(64)]))
-    test_audio, test_frame = se.stack_clips([se.make_clip(1000 + i, "v2")
-                                             for i in range(se.N_TEST)])
-    cfg = TaskConfig(timesteps=se.TIMESTEPS, training_mode="x_0", loss_type="l2", lr=4e-4,
-                     sampling_type="cfdg_ddpm_x0", w=0.5, fused_train=fused)
+    clips = se.check_clips(args, device)
     rows = []
     for seed in seeds:
-        torch.manual_seed(seed)
-        model = se.build_twin({})
-        if "init" in args:   # a given start instead of the seed's draw
-            model.net.load_state_dict(read_ckpt(args["init"])["state_dict"])
-        model = model.to(device)
-        se.run_training(model, cfg, train_frame, train_audio, 2000, seed=seed + 1,
-                        tag=f"seed {seed}")
-        twin = se.Twin(model, cfg, torch.from_numpy(test_audio).to(device), test_frame)
-        m = twin.score(cfg.sampling_type, None)
+        m, _ = se.learning_check(args, seed, clips, start)
         rows.append({"seed": seed, "note_f1": m["note_f1"], "frame_f1": m["frame_f1"]})
         se.log(json.dumps(rows[-1]))
     return summarise({"device": torch.cuda.get_device_name(0) if device.type == "cuda"
-                      else "cpu", "package": "port", "fused_train": fused}, rows)
+                      else "cpu", "package": "port", "fused_train": m["fused_train"]}, rows)
 
 
 def summarise(summary: Dict, rows: List[Dict]) -> Dict:
+    from diffroll_tpu_torch.quality.synthetic_end_to_end import over_seeds
+
     summary["rows"] = rows
-    for k in ("note_f1", "frame_f1"):
-        v = [r[k] for r in rows]
-        summary[k] = {"mean": float(np.mean(v)),
-                      "sd": float(np.std(v, ddof=1)) if len(v) > 1 else None}
+    summary.update(over_seeds(rows))
     print(json.dumps(summary))
     return summary
 

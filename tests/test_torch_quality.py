@@ -23,7 +23,7 @@ from diffroll_tpu.dsp import mel as jmel
 from diffroll_tpu.eval.evaluate import evaluate_rolls as j_evaluate_rolls
 from diffroll_tpu_torch.dsp.mel import MelConfig
 from diffroll_tpu_torch.quality import (
-    bf16_drift, eval_boundary, eval_inpainting, eval_longform, flax_init, fullsize_distill,
+    bf16_drift, eval_boundary, eval_inpainting, eval_longform, fullsize_distill,
     make_synthetic_tree, paper_sweeps, pretrain_both_pipeline, synthetic_end_to_end)
 from torch_native_tiers import native_tiers_pinned  # noqa: F401
 
@@ -191,6 +191,68 @@ def test_learning_check_routes_and_distill_tiny():
     assert set(m["distill"]) == {"5steps", "3steps"} and _finite(m)
 
 
+def test_the_check_over_seeds_is_the_check_at_seed_0():
+    """Seed 0 of the per-seed routine, with the clips rendered once as
+    `chip_smoke.py` phase learn and `tests/learning_seeds.py` run it, gives
+    the check's own record exactly (its wall seconds aside)."""
+    import learning_seeds
+
+    argv = TINY + ["steps=3"]
+    args = synthetic_end_to_end.parse_args(argv)
+    want, _ = synthetic_end_to_end.learning_check(args)
+    clips = synthetic_end_to_end.check_clips(args, torch.device("cpu"))
+    got, _ = synthetic_end_to_end.learning_check(args, 0, clips)
+    want.pop("wall_s"), got.pop("wall_s")
+    assert got == want and want["seed"] == 0
+    row, = learning_seeds.main(argv + ["seeds=0"])["rows"]
+    assert row == {"seed": 0, "note_f1": want["note_f1"], "frame_f1": want["frame_f1"]}
+
+
+def test_seeds_draw_their_own_weights_and_streams():
+    """Seed s draws the weights after `torch.manual_seed(s)` and the training
+    stream from s + 1: seeds 0 and 1 start apart, and from one start they
+    train apart."""
+    args = synthetic_end_to_end.parse_args(TINY + ["steps=2"])
+    clips = synthetic_end_to_end.check_clips(args, torch.device("cpu"))
+    starts = []
+    for seed in (0, 1):
+        torch.manual_seed(seed)
+        starts.append(synthetic_end_to_end.build_twin(args).net.state_dict())
+    assert any(not torch.equal(starts[0][k], starts[1][k]) for k in starts[0])
+    m0, t0 = synthetic_end_to_end.learning_check(args, 0, clips)
+    m0s, t0s = synthetic_end_to_end.learning_check(args, 0, clips, start=starts[0])
+    _, t1s = synthetic_end_to_end.learning_check(args, 1, clips, start=starts[0])
+    assert m0s["losses"] == m0["losses"]   # seed 0's own draw is starts[0]
+    trained = [t.model.net.state_dict() for t in (t0, t0s, t1s)]
+    assert all(torch.equal(trained[0][k], trained[1][k]) for k in trained[0])
+    assert any(not torch.equal(trained[1][k], trained[2][k]) for k in trained[1])
+
+
+# one row a seed: (note F1, frame F1), seed 0 first
+SEED_ROWS = {
+    "seed_0_under_the_mean_over": [(0.47, 0.5986), (0.48, 0.6358), (0.46, 0.6201),
+                                   (0.49, 0.6102), (0.47, 0.6244), (0.45, 0.5954)],
+    "seed_0_over_the_mean_under": [(0.47, 0.6069), (0.46, 0.5902), (0.45, 0.5951),
+                                   (0.47, 0.5920), (0.48, 0.5983), (0.46, 0.5968)],
+    "note_mean_under": [(0.45, 0.62), (0.38, 0.61), (0.35, 0.63)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEED_ROWS))
+def test_the_learning_gate_reads_the_mean_over_seeds(case):
+    rows = [{"seed": s, "note_f1": n, "frame_f1": f} for s, (n, f) in enumerate(SEED_ROWS[case])]
+    summary = synthetic_end_to_end.over_seeds(rows)
+    for k, i in (("note_f1", 0), ("frame_f1", 1)):
+        v = [r[i] for r in SEED_ROWS[case]]
+        assert summary[k]["mean"] == pytest.approx(np.mean(v), abs=1e-12)
+        assert summary[k]["sd"] == pytest.approx(np.std(v, ddof=1), abs=1e-12)
+    seed_0_clears = rows[0]["note_f1"] >= 0.40 and rows[0]["frame_f1"] >= 0.60
+    admitted = synthetic_end_to_end.clears_on_mean(rows, 0.40, 0.60)
+    assert admitted == (case == "seed_0_under_the_mean_over")
+    assert seed_0_clears != admitted
+    assert synthetic_end_to_end.over_seeds(rows[:1])["frame_f1"]["sd"] is None
+
+
 # ---------------------------------------------------------------- (6) the tools
 
 
@@ -331,9 +393,8 @@ def test_bf16_drift_on_the_cpu():
     (paper_sweeps, ["tree=unused"]),
     (pretrain_both_pipeline, ["smoke", "paired=unused", "unpaired=unused"]),
     (fullsize_distill, ["tree=unused"]),
-    (flax_init, ["spec_roll", "dataset.root=unused"]),
 ], ids=["synthetic_end_to_end", "eval_boundary", "eval_inpainting", "eval_longform",
-        "bf16_drift", "paper_sweeps", "pretrain_both_pipeline", "fullsize_distill", "flax_init"])
+        "bf16_drift", "paper_sweeps", "pretrain_both_pipeline", "fullsize_distill"])
 def test_entries_refuse_a_missing_card(module, argv, monkeypatch):
     """Each entry runs on the card unless given device=cpu, and exits on
     device=cuda (the default) without one: it never falls back to the CPU."""
@@ -447,63 +508,3 @@ def test_fullsize_distill_tiny(recipe_tree, tmp_path):
     assert [r["sampling_steps"] for r in out["scores"]] == [3, 3, None, 5]
     assert all(r["n_clips"] == 2 for r in out["scores"]) and _finite(out)
     assert json.loads((tmp_path / "scores.json").read_text()) == out["scores"]
-
-
-def _spreads(named):
-    """(std x sqrt(fan_in) of every 2-D dense weight, largest |bias|)."""
-    dense = [float(np.std(w) * math.sqrt(w.shape[0])) for n, w in named if n == "dense"]
-    return dense, max(float(np.abs(b).max()) for n, b in named if n == "bias")
-
-
-def test_flax_init_draws_the_jax_packages_distributions():
-    """After `flax_init_` the port's dense weights have the JAX package's
-    spread (LeCun: std x sqrt(fan_in) = 1, the truncated normal rescaled) and
-    every bias is 0, as in the JAX package's init. Before it the dense
-    weights already have that spread (`nn/init.py` draws them so) and the
-    biases are PyTorch's, nonzero."""
-    import jax
-
-    from diffroll_tpu import models as jmodels
-
-    size = dict(residual_channels=64, residual_layers=2, frames=32, timesteps=10)
-    params = jmodels.build("ClassifierFreeDiffRoll", **size).init(jax.random.key(0))
-    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
-    jax_named = [("dense" if path[-1].key == "kernel" and leaf.ndim == 2 else
-                  "bias" if path[-1].key == "bias" else "other", np.asarray(leaf))
-                 for path, leaf in leaves]
-    torch.manual_seed(0)
-    net = synthetic_end_to_end.build_twin({"channels": "64", "layers": "2", "frames": "32",
-                                          "timesteps": "10"}).net
-
-    def port_named():
-        out = []
-        for m in net.modules():
-            if isinstance(m, torch.nn.Linear):
-                out.append(("dense", m.weight.detach().numpy().T))
-            if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)) and m.bias is not None:
-                out.append(("bias", m.bias.detach().numpy()))
-        return out
-
-    jax_dense, jax_bias = _spreads(jax_named)
-    before_dense, before_bias = _spreads(port_named())
-    flax_init.flax_init_(net)
-    after_dense, after_bias = _spreads(port_named())
-    assert len(after_dense) == len(jax_dense) and jax_bias == 0.0 == after_bias
-    assert before_bias > 0.01 and all(0.9 < d < 1.1 for d in before_dense)
-    for got, want in zip(sorted(after_dense), sorted(jax_dense)):
-        assert abs(got - want) < 0.06 and 0.9 < got < 1.1
-
-
-def test_flax_init_trains_through_train(recipe_tree, tmp_path):
-    """The entry is `train` from the re-drawn start: one epoch on the CPU. Its
-    biases start at 0, so after a step or two of Adam (lr 1e-3 at most) they
-    stay far under PyTorch's draws (up to 1/sqrt(fan_in): 0.06-0.25 here)."""
-    state = flax_init.main(["spec_roll", f"dataset.root={recipe_tree}", "model.residual_channels=16",
-                            "model.residual_layers=2", "model.frames=32", "task.timesteps=10",
-                            "dataset.sequence_length=16384", "dataloader.train_batch_size=2",
-                            "dataloader.num_workers=1", "trainer.max_epochs=1",
-                            "task.fused_train=true", "device=cpu",
-                            f"trainer.output_dir={tmp_path}"])
-    assert 1 <= state.step <= 2
-    biases = [p.detach() for n, p in state.model.net.named_parameters() if n.endswith(".bias")]
-    assert biases and max(float(b.abs().max()) for b in biases) < 0.005
