@@ -41,9 +41,9 @@ exits non-zero):
                 a roll of the right length in fewer batches than windows, K2
                 launched once per batch; then a burst of 32 concurrent such
                 requests for windows per second (B=8 clips/s) and the mean
-                batch wall time. The same again with max_wait_ms=100, as a
-                labelled comparison; then a detailed_timing service for the
-                mean compute time of a batch (sum_compute_s)
+                batch wall time, each stage's mean a batch and the compute
+                time of a batch (sum_compute_s, by CUDA events). The same
+                again with max_wait_ms=100, as a labelled comparison
   9. distill    `diffroll_tpu_torch.cli.distill.main` on the checkpoint phase 5
                 wrote, over its corpus, at full width (B=16,
                 task.fused_train=true, distill.start_steps=9 distill.stages=2
@@ -527,13 +527,14 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
     """The service `python -m diffroll_tpu_torch serve` builds from the
     checkpoint with the ServeConfig defaults (max_wait_ms=25), behind the
     HTTP front on a free localhost port; then the same with max_wait_ms=100
-    as a labelled comparison, and a detailed_timing service. Returns the
-    default service's launch counts."""
+    as a labelled comparison; each with its stages' mean host time a batch
+    and its compute time a batch (`sum_compute_s`, by CUDA events) over the
+    throughput burst. Returns the default service's launch counts."""
     import threading
     import urllib.request
 
     from diffroll_tpu_torch.cli import serve as cli_serve
-    from diffroll_tpu_torch.serve import TranscriptionService, serve_forever
+    from diffroll_tpu_torch.serve import serve_forever
 
     gated_stack, fused_sample = kernels
     argv = [f"pretrained_path={ckpt}", "device=cuda"]  # the sampling preset: w=0.5
@@ -611,31 +612,17 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
                 "windows_per_second": n_load / load_s,
                 "mean_batch_wall_s": (after["sum_batch_wall_s"]
                                       - stats["sum_batch_wall_s"]) / batches,
-                "launches": launches}, svc.task
+                # each stage's mean a batch of the burst, at the service's depth
+                "mean_stage_s": {k[4:]: (after[k] - stats.get(k, 0.0)) / batches
+                                 for k in after if k.startswith("sum_")},
+                "padded_rows": after.get("padded_rows", 0) - stats.get("padded_rows", 0),
+                "launches": launches}
 
-    default, task = drive([])
-    wide, _ = drive(["serve.max_wait_ms=100"])
-    # the first burst through a service that times each stage alone
-    svc = TranscriptionService(task, max_batch=SERVE_BATCH, seed=SEED, detailed_timing=True,
-                               transfer_dtype=default["transfer"])
-    try:
-        svc.warmup()
-        audio = chord_wav(seconds_each, sr, SEED + 10)
-        threads = [threading.Thread(target=svc.transcribe, args=(audio,))
-                   for _ in range(SERVE_BATCH)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        detailed = dict(svc.stats)
-    finally:
-        svc.close()
-    per = {k[4:]: detailed[k] / detailed["batches"] for k in detailed if k.startswith("sum_")}
+    default = drive([])
+    wide = drive(["serve.max_wait_ms=100"])
     phase("serve", requests=SERVE_BATCH, frames=want_frames,
           burst="8 concurrent 20 s requests, then 32 (each one window; 8 distinct bodies)",
-          default=default, max_wait_100ms=wide, detailed_batches=detailed["batches"],
-          detailed_sum_compute_s=detailed["sum_compute_s"], detailed_mean_s=per,
-          launches=default["launches"])
+          default=default, max_wait_100ms=wide, launches=default["launches"])
     return default["launches"]
 
 

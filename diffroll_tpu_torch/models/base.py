@@ -19,6 +19,7 @@ from ..dsp.mel import MelConfig, MelSpectrogram
 from ..dsp.normalize import min_max_normalize
 from ..nn.denoiser import DiffRollNet, DiffRollNet2D
 from ..nn.unet import SpecUnetNet, UnetNet
+from ..utils.profiling import span
 from . import conditioning
 
 
@@ -141,22 +142,23 @@ class DiffRollModel(nn.Module):
         c = self.config
         if c.cond_source == "none" or c.unconditional:
             return None
-        if c.cond_source == "roll":
-            cond = roll
-        else:
-            if c.spec_norm == "unit":
-                rng: Optional[Tuple[float, float]] = (0.0, 1.0)
-                mode = c.norm_args[2]
-            elif c.spec_norm == "norm_args":
-                rng = (c.norm_args[0], c.norm_args[1])
-                mode = c.norm_args[2]
-            elif c.spec_norm == "none":
-                rng, mode = None, "imagewise"
+        with span("conditioner"):
+            if c.cond_source == "roll":
+                cond = roll
             else:
-                raise ValueError(f"unknown spec_norm {c.spec_norm!r}")
-            cond = conditioning.compute_spec(self.mel, waveform, rng, mode)
-            cond = conditioning.trim_to(c.frames, cond)
-        return conditioning.apply_inpainting_mask(cond, inpainting_t, inpainting_f)
+                if c.spec_norm == "unit":
+                    rng: Optional[Tuple[float, float]] = (0.0, 1.0)
+                    mode = c.norm_args[2]
+                elif c.spec_norm == "norm_args":
+                    rng = (c.norm_args[0], c.norm_args[1])
+                    mode = c.norm_args[2]
+                elif c.spec_norm == "none":
+                    rng, mode = None, "imagewise"
+                else:
+                    raise ValueError(f"unknown spec_norm {c.spec_norm!r}")
+                cond = conditioning.compute_spec(self.mel, waveform, rng, mode)
+                cond = conditioning.trim_to(c.frames, cond)
+            return conditioning.apply_inpainting_mask(cond, inpainting_t, inpainting_f)
 
     def apply(self, x_t, t, cond, uncond_mask=None, cond_proj=None):
         """Denoiser forward: (B, T, 88) x (B,) x (B, T, n_cond) -> (B, T, 88).

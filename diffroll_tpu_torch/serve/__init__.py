@@ -17,8 +17,11 @@ micro-batching (counterpart of `diffroll_tpu/serve/`).
     overlaps) and decode to note events or MIDI on the request's thread.
 
 HTTP (the standard library's ThreadingHTTPServer):
-  POST /transcribe   body = WAV bytes -> JSON {notes, frames, ...}
+  POST /transcribe   body = WAV bytes -> JSON {notes, frames, placement, ...},
+                     placement: each window's [batch ordinal, row]
                      ?midi=1 -> a MIDI file instead
+                     ?roll=1 -> the stitched roll too, bit for bit:
+                     {dtype, shape, data: base64 of its little-endian bytes}
                      ?threshold=0.5 overrides the frame threshold
   GET  /healthz      liveness, counters and model info
 """

@@ -4,7 +4,9 @@ the package docstring has the design)."""
 
 from __future__ import annotations
 
+import base64
 import contextlib
+import itertools
 import json
 import math
 import queue
@@ -19,6 +21,7 @@ import torch.distributed as dist
 
 from ..diffusion.loop import timestep_subsequence
 from ..diffusion.samplers import SAMPLER_TABLE
+from ..utils.profiling import span
 
 
 @dataclass
@@ -37,6 +40,8 @@ class _Request:
     total_frames: int
     overlap_frames: int
     rolls: List[Optional[np.ndarray]] = field(default_factory=list)
+    # each window's (batch ordinal, row): where its draws came from
+    placement: List[Optional[Tuple[int, int]]] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     error: Optional[BaseException] = None
     # set when the caller gave up (timeout) or enqueuing failed midway: the
@@ -48,10 +53,17 @@ class _Request:
     def dead(self) -> bool:
         return self.abandoned or self.done.is_set()
 
-    def deliver(self, index: int, roll: np.ndarray):
+    def deliver(self, index: int, roll: np.ndarray, placement: Tuple[int, int]):
         self.rolls[index] = roll
+        self.placement[index] = placement
         if all(r is not None for r in self.rolls):
             self.done.set()
+
+
+# the stages timed into `stats` as `sum_<name>`, beside `sum_deliver_s` and
+# `sum_batch_wall_s`
+STAGE_SUMS = ("queue_wait_s", "gather_s", "assemble_s", "copy_in_s", "issue_s", "wait_s",
+              "copy_out_s", "compute_s")
 
 
 class ServiceOverloaded(RuntimeError):
@@ -66,6 +78,17 @@ class TranscriptionService:
     `max_batch` windows, short batches zero-padded, so the card always runs
     the same shapes. On a CUDA model the reverse process is the
     whole-process sampler (K2).
+
+    Every batch drawn for gets an ordinal, the warm-up's batch 0: its x_T
+    and per-step noise are the service generator's draws for that batch, in
+    order, at `max_batch` rows. Each window delivered records its (ordinal,
+    row), so its draws can be replayed from the seed
+    (`transcribe_with_placement`). `stats` sums each stage's host time
+    (`sum_<stage>_s`: gather, assemble, copy_in, issue, wait, copy_out,
+    deliver, as the `serve.*` spans of utils/profiling.py bound them), the
+    device time of `_run` (`sum_compute_s`: CUDA events on the service's
+    stream; the host clock on the CPU) and the zero rows batches were padded
+    with (`padded_rows`).
 
     Over a mesh (`mesh`, parallel/mesh.py; one process a card under
     torchrun) `max_batch` is rounded down to a multiple of the data axis.
@@ -84,8 +107,7 @@ class TranscriptionService:
     def __init__(self, task, *, max_batch: int = 8, max_wait_ms: float = 25.0,
                  overlap_frames: int = 32, frame_threshold: float = 0.5, seed: int = 0,
                  max_body_mb: float = 64.0, max_queued_windows: int = 256,
-                 transfer_dtype: str = "float32", pipeline_depth: int = 2,
-                 detailed_timing: bool = False, mesh=None):
+                 transfer_dtype: str = "float32", pipeline_depth: int = 2, mesh=None):
         self.task = task
         self.mesh = mesh
         mc = task.model.config
@@ -110,10 +132,8 @@ class TranscriptionService:
             raise ValueError(f"transfer_dtype must be float32|int16, got {transfer_dtype!r}")
         self.transfer_dtype = transfer_dtype
         # batches in flight: at depth 2 the dispatcher assembles and copies
-        # batch k+1 while the card computes batch k; detailed_timing needs
-        # depth 1, so that each stage can be timed alone
-        self.pipeline_depth = 1 if detailed_timing else max(int(pipeline_depth), 1)
-        self.detailed_timing = detailed_timing
+        # batch k+1 while the card computes batch k
+        self.pipeline_depth = max(int(pipeline_depth), 1)
         # bounded: otherwise concurrent large requests (a thread each) grow
         # host memory without limit
         self._queue: "queue.Queue[_WindowJob]" = queue.Queue(
@@ -125,6 +145,8 @@ class TranscriptionService:
         self._stochastic = SAMPLER_TABLE[cfg.sampling_type][3]
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._generator_lock = threading.Lock()
+        self._drawn = 0   # batches drawn for: the next batch's ordinal
+        self._request_ids = itertools.count()
         # on a card the batches are issued on a stream the service owns and
         # each is followed by an event that the completion thread waits on
         # (PyTorch's current stream is per thread, so the two threads must
@@ -161,25 +183,29 @@ class TranscriptionService:
         dist.broadcast(wav, src=0)
         return wav
 
-    def _run(self, wav: torch.Tensor) -> torch.Tensor:
+    def _run(self, wav: torch.Tensor) -> Tuple[int, torch.Tensor]:
         """The batch's reverse process: (max_batch, seq_len) waveforms on the
-        device (f32, or int16 PCM) -> (max_batch, frames, 88) rolls there;
-        over a mesh, this rank's data stripe, the rolls gathered."""
+        device (f32, or int16 PCM) -> the batch's ordinal and (max_batch,
+        frames, 88) rolls there; over a mesh, this rank's data stripe, the
+        rolls gathered (every rank draws the same batches in the same order,
+        so the ordinal is the same on every rank)."""
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
         mesh = self.mesh
         shape = (self.max_batch, self.frames, self.pitches)
         with self._generator_lock:
+            ordinal = self._drawn
+            self._drawn += 1
             x_T = torch.randn(shape, generator=self._generator, device=self.device)
             noise = (torch.randn((self._steps,) + shape, generator=self._generator,
                                  device=self.device) if self._stochastic else None)
         if mesh is None:
-            return self.task.sample(x_T, waveform=wav, noise=noise)[0]
+            return ordinal, self.task.sample(x_T, waveform=wav, noise=noise)[0]
         st = mesh.stripe
         part = self.task.sample(st(x_T), waveform=st(wav),
                                 noise=None if noise is None
                                 else noise[:, mesh.data_index::mesh.data])[0]
-        return mesh.gather_stripes(part, self.max_batch)
+        return ordinal, mesh.gather_stripes(part, self.max_batch)
 
     def _broadcast_header(self, rows: int, stop: bool) -> Tuple[int, bool]:
         """Rank 0's (rows, stop) on every rank of the mesh."""
@@ -222,6 +248,17 @@ class TranscriptionService:
                    timeout: Optional[float] = 300.0) -> np.ndarray:
         """Waveform of any length -> (n_frames, 88) roll. Thread-safe;
         concurrent calls share sampler batches."""
+        return self.transcribe_with_placement(audio, sample_rate, timeout)[0]
+
+    def transcribe_with_placement(
+            self, audio: np.ndarray, sample_rate: Optional[int] = None,
+            timeout: Optional[float] = 300.0) -> Tuple[np.ndarray, List[Tuple[int, int]]]:
+        """`transcribe`'s roll, and each window's (batch ordinal, row) in
+        window order."""
+        with span("serve.request", f"request={next(self._request_ids)}"):
+            return self._transcribe(audio, sample_rate, timeout)
+
+    def _transcribe(self, audio, sample_rate, timeout):
         from ..tasks.transcribe import split_windows, stitch_rolls
 
         audio = np.asarray(audio, np.float32)
@@ -232,7 +269,8 @@ class TranscriptionService:
         total_frames = max(1, math.ceil(len(audio) / self.hop))
         windows = split_windows(audio, self.seq_len, self.hop, self.overlap_frames)
         req = _Request(n_windows=len(windows), total_frames=total_frames,
-                       overlap_frames=self.overlap_frames, rolls=[None] * len(windows))
+                       overlap_frames=self.overlap_frames, rolls=[None] * len(windows),
+                       placement=[None] * len(windows))
         for i, wav in enumerate(windows):
             try:
                 self._queue.put_nowait(_WindowJob(wav=wav, request=req, index=i,
@@ -249,7 +287,8 @@ class TranscriptionService:
         with self._stats_lock:
             self.stats["requests"] += 1
             self.stats["audio_seconds"] += len(audio) / self.sample_rate
-        return stitch_rolls(np.stack(req.rolls), self.overlap_frames, total_frames)
+        roll = stitch_rolls(np.stack(req.rolls), self.overlap_frames, total_frames)
+        return roll, list(req.placement)
 
     def notes(self, roll: np.ndarray, threshold: Optional[float] = None):
         """Binarised roll -> [{pitch, onset, offset}] note events (seconds)."""
@@ -290,23 +329,26 @@ class TranscriptionService:
             if first.request.dead:
                 continue
             jobs = [first]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(jobs) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    job = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if not job.request.dead:
-                    jobs.append(job)
+            t0 = time.monotonic()
+            deadline = t0 + self.max_wait_s
+            with span("serve.gather", f"batch={self._drawn}"):
+                while len(jobs) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        job = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if not job.request.dead:
+                        jobs.append(job)
+            gather_s = time.monotonic() - t0
             # again: a caller may have timed out while the batch filled
             jobs = [j for j in jobs if not j.request.dead]
             if not jobs:
                 continue
             try:
-                self._issue_batch(jobs)
+                self._issue_batch(jobs, gather_s)
             except Exception as e:  # noqa: BLE001 - the thread must live; every waiter gets it
                 for job in jobs:
                     job.request.error = e
@@ -319,7 +361,7 @@ class TranscriptionService:
         if self._cuda:
             self._stream.synchronize()
 
-    def _issue_batch(self, jobs: List[_WindowJob]):
+    def _issue_batch(self, jobs: List[_WindowJob], gather_s: float):
         """Assemble and issue one batch; the completion thread finishes it.
 
         This thread is the only one that launches the sampler: the C entry
@@ -332,73 +374,94 @@ class TranscriptionService:
         """
         t0 = time.monotonic()
         queue_wait = sum(t0 - j.t_enqueue for j in jobs) / len(jobs)
-        wav = np.zeros((self.max_batch, self.seq_len), np.float32)
-        for i, job in enumerate(jobs):
-            wav[i] = job.wav
-        if self.transfer_dtype == "int16":
-            wav = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
-        host = torch.from_numpy(wav)
-        if self._cuda:
-            host = host.pin_memory()  # the copy then runs behind the stream's work
-        t1 = time.monotonic()
-        timing = {"queue_wait_s": queue_wait, "assemble_s": t1 - t0}
-        done = None
-        with self._device_stream():
-            if self.detailed_timing:
-                # the stages one after another, so that each is attributable
-                wav_dev = host.to(self.device, non_blocking=True)
-                self._wait_device()
-                t2 = time.monotonic()
-                timing["h2d_s"] = t2 - t1
-                rolls_dev = self._run(self._share(wav_dev, len(jobs)))
-                self._wait_device()
-                timing["compute_s"] = time.monotonic() - t2
-            else:
-                rolls_dev = self._run(self._share(host.to(self.device, non_blocking=True),
-                                                  len(jobs)))
+        args = f"batch={self._drawn}"   # the ordinal the batch draws as
+        with span("serve.assemble", args):
+            wav = np.zeros((self.max_batch, self.seq_len), np.float32)
+            for i, job in enumerate(jobs):
+                wav[i] = job.wav
+            if self.transfer_dtype == "int16":
+                wav = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+            host = torch.from_numpy(wav)
             if self._cuda:
-                done = torch.cuda.Event()
-                done.record(self._stream)
-        timing["t_issue"] = t1
+                host = host.pin_memory()  # the copy then runs behind the stream's work
+        t1 = time.monotonic()
+        start = end = None
+        with self._device_stream():
+            with span("serve.copy_in", args):
+                wav_dev = self._share(host.to(self.device, non_blocking=True), len(jobs))
+            t2 = time.monotonic()
+            with span("serve.issue", args):
+                if self._cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(self._stream)
+                ordinal, rolls_dev = self._run(wav_dev)
+                if self._cuda:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record(self._stream)
+            t3 = time.monotonic()
+        timing = {"queue_wait_s": queue_wait, "gather_s": gather_s, "assemble_s": t1 - t0,
+                  "copy_in_s": t2 - t1, "issue_s": t3 - t2, "t_issue": t1,
+                  # on the CPU `_run` computes as it is called
+                  "compute_s": None if self._cuda else t3 - t2}
         # blocks while pipeline_depth batches are in flight: that is the depth
-        self._completions.put((jobs, rolls_dev, done, timing))
+        self._completions.put((jobs, ordinal, rolls_dev, start, end, timing))
 
     def _completion_loop(self):
         while not self._stop.is_set():
             try:
-                jobs, rolls_dev, done, timing = self._completions.get(timeout=0.1)
+                jobs, ordinal, rolls_dev, start, end, timing = self._completions.get(timeout=0.1)
             except queue.Empty:
                 continue
+            batch = f"batch={ordinal}"
             try:
                 t0 = time.monotonic()
-                if done is not None:
-                    done.synchronize()  # the batch's kernels have finished
-                rolls = rolls_dev.cpu().numpy()
+                with span("serve.wait", batch):
+                    if end is not None:
+                        end.synchronize()  # the batch's kernels have finished
                 t1 = time.monotonic()
+                with span("serve.copy_out", batch):
+                    rolls = rolls_dev.cpu().numpy()
+                t2 = time.monotonic()
+                timing.update(wait_s=t1 - t0, copy_out_s=t2 - t1)
+                if end is not None:
+                    timing["compute_s"] = start.elapsed_time(end) / 1e3
                 with self._stats_lock:
                     s = self.stats
                     s["windows"] += len(jobs)
                     s["batches"] += 1
-                    s["sum_queue_wait_s"] = s.get("sum_queue_wait_s", 0.0) + timing["queue_wait_s"]
-                    s["sum_assemble_s"] = s.get("sum_assemble_s", 0.0) + timing["assemble_s"]
-                    if self.detailed_timing:
-                        s["sum_h2d_s"] = s.get("sum_h2d_s", 0.0) + timing["h2d_s"]
-                        s["sum_compute_s"] = s.get("sum_compute_s", 0.0) + timing["compute_s"]
-                        s["sum_d2h_s"] = s.get("sum_d2h_s", 0.0) + (t1 - t0)
-                    else:
-                        # issue -> ready: compute and transfers, overlapped
-                        s["sum_batch_wall_s"] = (s.get("sum_batch_wall_s", 0.0)
-                                                 + (t1 - timing["t_issue"]))
+                    s["padded_rows"] = s.get("padded_rows", 0) + self.max_batch - len(jobs)
+                    for k in STAGE_SUMS:
+                        s[f"sum_{k}"] = s.get(f"sum_{k}", 0.0) + timing[k]
+                    # issue -> ready: compute and transfers, overlapped
+                    s["sum_batch_wall_s"] = (s.get("sum_batch_wall_s", 0.0)
+                                             + (t2 - timing["t_issue"]))
             except Exception as e:  # noqa: BLE001 - the thread must live; every waiter gets it
                 for job in jobs:
                     job.request.error = e
                     job.request.done.set()
                 continue
-            for i, job in enumerate(jobs):
-                job.request.deliver(job.index, rolls[i])
+            with span("serve.deliver", batch):
+                for i, job in enumerate(jobs):
+                    job.request.deliver(job.index, rolls[i], (ordinal, i))
+            deliver_s = time.monotonic() - t2
+            with self._stats_lock:
+                self.stats["sum_deliver_s"] = self.stats.get("sum_deliver_s", 0.0) + deliver_s
 
 
 # ------------------------------------------------------------------ HTTP
+
+def encode_roll(roll: np.ndarray) -> dict:
+    """A roll as JSON, bit for bit: its dtype, its shape and base64 of its
+    little-endian bytes (`decode_roll` reverses it)."""
+    le = np.ascontiguousarray(roll, dtype=roll.dtype.newbyteorder("<"))
+    return {"dtype": roll.dtype.name, "shape": list(roll.shape),
+            "data": base64.b64encode(le.tobytes()).decode("ascii")}
+
+
+def decode_roll(obj: dict) -> np.ndarray:
+    dtype = np.dtype(obj["dtype"]).newbyteorder("<")
+    return np.frombuffer(base64.b64decode(obj["data"]), dtype).reshape(obj["shape"])
+
 
 def _make_handler(service: TranscriptionService, info: dict):
     """The request handler class: GET /healthz, POST /transcribe."""
@@ -455,7 +518,7 @@ def _make_handler(service: TranscriptionService, info: dict):
             # policies and monitoring classify them right
             try:
                 t0 = time.monotonic()
-                roll = service.transcribe(audio, sample_rate=sr)
+                roll, placement = service.transcribe_with_placement(audio, sample_rate=sr)
                 notes = service.notes(roll, thr)
                 if q.get("midi", ["0"])[0] in ("1", "true"):
                     with tempfile.NamedTemporaryFile(suffix=".mid") as tmp:
@@ -466,7 +529,10 @@ def _make_handler(service: TranscriptionService, info: dict):
                     return
                 payload = {"frames": int(roll.shape[0]),
                            "audio_seconds": round(len(audio) / sr, 3),
-                           "latency_s": round(time.monotonic() - t0, 4), "notes": notes}
+                           "latency_s": round(time.monotonic() - t0, 4), "notes": notes,
+                           "placement": [list(p) for p in placement]}
+                if q.get("roll", ["0"])[0] in ("1", "true"):
+                    payload["roll"] = encode_roll(roll)
                 self._send(200, json.dumps(payload).encode())
             except ServiceOverloaded as e:
                 self._error(503, e, headers=[("Retry-After", "1")])

@@ -57,6 +57,7 @@ from ..ops.fused_forward import (
 from ..ops.gated_stack import kernel_weights, stack_weights
 from ..ops.sampler_kernel import fused_sample, sampler_tables
 from ..parallel.model_axis import full_view
+from ..utils.profiling import span
 from .losses import p_losses
 
 
@@ -397,21 +398,23 @@ class DiffusionTask:
         and rank 0 gets the whole batch back as a CPU tensor, every other
         rank None.
         """
-        cfg = self.config
-        n = len(timestep_subsequence(cfg.timesteps, cfg.sampling_steps))
-        if not SAMPLER_TABLE[cfg.sampling_type][3]:
-            noise = None
-        elif noise is None:
-            if generator is None:
-                raise ValueError(f"{cfg.sampling_type} needs `noise` or a `generator`")
-            noise = torch.randn((n,) + tuple(x_T.shape), generator=generator,
-                                device=x_T.device, dtype=torch.float32)
-        if self.mesh is not None:
-            if record_every is not None:
-                raise ValueError("a trajectory is not sampled over the data axis")
-            return self.mesh.sample_stripes(self._sample_rows, x_T, waveform, roll_cond,
-                                            noise), None
-        return self._sample_rows(x_T, waveform, roll_cond, noise, record_every)
+        with span("sample"):
+            cfg = self.config
+            n = len(timestep_subsequence(cfg.timesteps, cfg.sampling_steps))
+            if not SAMPLER_TABLE[cfg.sampling_type][3]:
+                noise = None
+            elif noise is None:
+                if generator is None:
+                    raise ValueError(f"{cfg.sampling_type} needs `noise` or a `generator`")
+                with span("sample.draw"):
+                    noise = torch.randn((n,) + tuple(x_T.shape), generator=generator,
+                                        device=x_T.device, dtype=torch.float32)
+            if self.mesh is not None:
+                if record_every is not None:
+                    raise ValueError("a trajectory is not sampled over the data axis")
+                return self.mesh.sample_stripes(self._sample_rows, x_T, waveform, roll_cond,
+                                                noise), None
+            return self._sample_rows(x_T, waveform, roll_cond, noise, record_every)
 
     def _sample_rows(self, x_T, waveform, roll_cond, noise, record_every=None):
         """The reverse process on this process's rows, the draws given."""
@@ -432,14 +435,15 @@ class DiffusionTask:
     def _sample_megakernel(self, x_T, cond, noise):
         """The whole reverse process through `fused_sample` (the kernels on
         CUDA tensors, the plain version on CPU tensors)."""
-        cfg = self.config
-        mc = self.model.config
-        _, _, guided, _ = SAMPLER_TABLE[cfg.sampling_type]
-        generation = cfg.sampling_type.startswith("generation")
-        w, head, kw, tables, t_bias, stochastic = self._fused_weights()
-        if cond is not None and generation:
-            cond = torch.full_like(cond, -1.0)
-        return fused_sample(
-            x_T, noise if stochastic else None, t_bias, tables, w, head, cond,
-            mc.dilations(), guided=bool(guided and cond is not None),
-            w_guidance=float(cfg.w), stochastic=stochastic, kweights=kw)
+        with span("sample.k2"):
+            cfg = self.config
+            mc = self.model.config
+            _, _, guided, _ = SAMPLER_TABLE[cfg.sampling_type]
+            generation = cfg.sampling_type.startswith("generation")
+            w, head, kw, tables, t_bias, stochastic = self._fused_weights()
+            if cond is not None and generation:
+                cond = torch.full_like(cond, -1.0)
+            return fused_sample(
+                x_T, noise if stochastic else None, t_bias, tables, w, head, cond,
+                mc.dilations(), guided=bool(guided and cond is not None),
+                w_guidance=float(cfg.w), stochastic=stochastic, kweights=kw)

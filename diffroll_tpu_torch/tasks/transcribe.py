@@ -9,6 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def split_windows(
     audio: np.ndarray,
@@ -76,28 +78,34 @@ def transcribe_long(
     rolls gathered to rank 0, which stitches them and returns the roll;
     every other rank returns None.
     """
-    mc = task.model.config
-    device = task.model.device
-    if sample_rate != mc.mel.sample_rate:
-        from .. import native
+    with span("transcribe.long"):
+        mc = task.model.config
+        device = task.model.device
+        with span("transcribe.split"):
+            if sample_rate != mc.mel.sample_rate:
+                from .. import native
 
-        audio = native.resample(np.asarray(audio, np.float32), sample_rate,
-                                mc.mel.sample_rate)
-    hop = mc.mel.hop_length
-    seq_len = mc.frames * hop
-    total_frames = max(1, math.ceil(len(audio) / hop))
-    windows = split_windows(np.asarray(audio, np.float32), seq_len, hop,
-                            overlap_frames)
+                audio = native.resample(np.asarray(audio, np.float32), sample_rate,
+                                        mc.mel.sample_rate)
+            hop = mc.mel.hop_length
+            seq_len = mc.frames * hop
+            total_frames = max(1, math.ceil(len(audio) / hop))
+            windows = split_windows(np.asarray(audio, np.float32), seq_len, hop,
+                                    overlap_frames)
 
-    rolls = []
-    for start in range(0, len(windows), batch_size):
-        chunk = torch.from_numpy(windows[start: start + batch_size]).to(device)
-        x_T = torch.randn((chunk.shape[0], mc.frames, mc.pitches),
-                          generator=generator, device=device)
-        out, _ = task.sample(x_T, waveform=chunk, generator=generator)
-        if out is None:  # not rank 0 of the data axis: the rolls went there
-            continue
-        rolls.append(out.cpu().numpy())
-    if not rolls:
-        return None
-    return stitch_rolls(np.concatenate(rolls, axis=0), overlap_frames, total_frames)
+        rolls = []
+        for k, start in enumerate(range(0, len(windows), batch_size)):
+            with span("transcribe.copy_in", f"batch={k}"):
+                chunk = torch.from_numpy(windows[start: start + batch_size]).to(device)
+            with span("transcribe.draw", f"batch={k}"):
+                x_T = torch.randn((chunk.shape[0], mc.frames, mc.pitches),
+                                  generator=generator, device=device)
+            out, _ = task.sample(x_T, waveform=chunk, generator=generator)
+            if out is None:  # not rank 0 of the data axis: the rolls went there
+                continue
+            with span("transcribe.copy_out", f"batch={k}"):
+                rolls.append(out.cpu().numpy())
+        if not rolls:
+            return None
+        with span("transcribe.stitch"):
+            return stitch_rolls(np.concatenate(rolls, axis=0), overlap_frames, total_frames)

@@ -29,11 +29,14 @@ import torch
 from ..config.experiment import TrainerConfig
 from ..data.pipeline import to_device
 from ..utils.logging import MetricLogger
-from ..utils.profiling import StepTimer, trace_if
+from ..utils.profiling import StepTimer, span, trace_if
 from ..parallel.model_axis import is_sharded
 from .checkpoint import Checkpointer, whole_state
 from .state import TrainState
 from .step import make_eval_step, make_train_step
+
+
+_END = object()   # the train loader's end
 
 
 def _batch_size(batch: Any, mesh=None) -> int:
@@ -140,8 +143,14 @@ def fit(
     for epoch in range(trainer.max_epochs):
         with trace_if(trainer.profile and epoch == 0 and (mesh is None or mesh.is_main),
                       str(logger.run_dir / "profile") if logger else "profile"):
-            for batch in train_loader:
-                batch = to_device(batch, device)
+            batches = iter(train_loader)
+            while True:
+                with span("train.data"):
+                    batch = next(batches, _END)
+                    if batch is not _END:
+                        batch = to_device(batch, device)
+                if batch is _END:
+                    break
                 losses = step_fn(state, batch, generator)
                 if ema is not None:
                     ema_update(ema, state.model.net, float(trainer.ema_decay))

@@ -7,6 +7,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from ..utils.profiling import span
 from .state import TrainState
 
 # loss_fn(batch, generator, train) -> (total, (losses, tensors))
@@ -25,16 +26,22 @@ def make_train_step(loss_fn: LossFn, mesh=None):
     batch's; under a model axis each rank's to its chunks."""
 
     def step(state: TrainState, batch: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        total, (losses, _) = loss_fn(batch, generator, True)
-        total.backward()
-        losses = {k: v.detach() for k, v in losses.items()}
-        if mesh is not None:
-            losses = mesh.average_gradients(state.model.net.parameters(), losses)
-        state.optimizer.step()
-        state.step += 1
-        return losses
+        with span("train.step"):
+            state.model.train()
+            with span("train.zero_grad"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with span("train.loss"):
+                total, (losses, _) = loss_fn(batch, generator, True)
+            with span("train.backward"):
+                total.backward()
+            losses = {k: v.detach() for k, v in losses.items()}
+            if mesh is not None:
+                with span("train.allreduce"):
+                    losses = mesh.average_gradients(state.model.net.parameters(), losses)
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return losses
 
     return step
 

@@ -1,7 +1,46 @@
 """Profiling helpers (counterpart of `diffroll_tpu/utils/profiling.py`):
 `trace_if` wraps a window of training steps in a `torch.profiler` trace
-(a chrome trace under `log_dir`); `StepTimer` keeps a cheap host-side
-steps/sec + examples/sec counter for the metrics stream."""
+(a chrome trace under `log_dir`); `span` names a stage of the host's work in
+whatever `torch.profiler` profile is recording; `StepTimer` keeps a cheap
+host-side steps/sec + examples/sec counter for the metrics stream.
+
+The spans, each a `user_annotation` in the profile's chrome trace, on the
+same clock as the card's kernels and copies:
+
+  transcribe.long       tasks/transcribe.py::transcribe_long, the whole call
+  transcribe.split      its resampling and `split_windows`
+  transcribe.copy_in    a batch's windows to the device (args: batch index)
+  transcribe.draw       a batch's x_T
+  transcribe.copy_out   a batch's rolls to the host
+  transcribe.stitch     `stitch_rolls`
+  sample                tasks/diffusion.py::DiffusionTask.sample
+  sample.draw           its per-step noise
+  sample.k2             the whole-process sampler's host preparation and
+                        its C call (`_sample_megakernel`)
+  conditioner           models/base.py::DiffRollModel.conditioner
+  train.step            train/step.py, one training step
+  train.zero_grad       its `zero_grad`
+  train.loss            its loss (the forward)
+  train.backward        its `backward`
+  train.allreduce       the gradients' average over the data axis (a mesh only)
+  train.optimizer       the optimizer's step
+  train.data            train/loop.py::fit, the next batch fetched and moved
+                        to the device
+  serve.request         serve/service.py, a caller's request (args: its id)
+  serve.gather          the dispatcher: the first window to the batch closed
+                        (args: the batch's ordinal)
+  serve.assemble        the waveform batch assembled and pinned
+  serve.copy_in         the batch to the device
+  serve.issue           the batch's draws and the sampler's enqueue
+  serve.wait            the completion thread: the batch's event
+  serve.copy_out        the batch's rolls to the host
+  serve.deliver         the rolls handed to their requests
+
+A profile records only the threads it was started on unless it is started
+with `profile_all_threads` (`torch._C._profiler._ExperimentalConfig`), so
+the `serve.*` spans of the dispatcher and completion threads appear only
+in such a profile.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +48,20 @@ import contextlib
 import pathlib
 import time
 from typing import Optional
+
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args: Optional[str] = None):
+    """`torch.profiler.record_function(name, args)` while a profile records,
+    else one shared no-op context: off, a span costs one check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    from torch.profiler import record_function
+
+    return record_function(name, args)
 
 
 @contextlib.contextmanager

@@ -189,7 +189,7 @@ def test_http_overload_maps_to_503(service, tmp_path, monkeypatch):
     def overloaded(*a, **k):
         raise ServiceOverloaded("window queue full")
 
-    monkeypatch.setattr(service, "transcribe", overloaded)
+    monkeypatch.setattr(service, "transcribe_with_placement", overloaded)
     try:
         wav_path = tmp_path / "tiny.wav"
         write_wav(wav_path, np.zeros(HOP * 4, np.float32), SR)
@@ -246,21 +246,25 @@ def test_transfer_dtype_validated():
         TranscriptionService(_task(4), transfer_dtype="int8")
 
 
-def test_detailed_timing_decomposes_stages():
-    """detailed_timing serialises the pipeline and attributes each batch's
-    wall to queue wait, assembly, host-to-device, compute and the copy back."""
-    svc = TranscriptionService(_task(4), max_batch=2, max_wait_ms=5, overlap_frames=4,
-                               detailed_timing=True)
+def test_stage_sums_at_depth_two():
+    """At the default pipeline depth of 2 the stats sum each batch's stages
+    by the host clock, its compute time (the host clock on the CPU) and the
+    zero rows it was padded with."""
+    svc = TranscriptionService(_task(4), max_batch=2, max_wait_ms=5, overlap_frames=4)
     try:
-        assert svc.pipeline_depth == 1  # stages must not overlap
+        assert svc.pipeline_depth == 2
         svc.warmup()
-        svc.transcribe(np.zeros(SEQ, np.float32))
-        for k in ("sum_queue_wait_s", "sum_assemble_s", "sum_h2d_s", "sum_compute_s",
-                  "sum_d2h_s"):
-            assert svc.stats.get(k, -1.0) >= 0.0, (k, svc.stats)
-        assert svc.stats["sum_compute_s"] > 0.0 and "sum_batch_wall_s" not in svc.stats
+        stride = SEQ - 4 * HOP
+        roll = svc.transcribe(np.zeros(SEQ + 2 * stride, np.float32))  # 3 windows
+        assert roll.shape[0] == -(-(SEQ + 2 * stride) // HOP)
     finally:
         svc.close()
+    s = svc.stats
+    for k in ("queue_wait", "gather", "assemble", "copy_in", "issue", "wait", "copy_out",
+              "deliver", "batch_wall"):
+        assert s.get(f"sum_{k}_s", -1.0) >= 0.0, (k, s)
+    assert s["sum_compute_s"] > 0.0 and s["sum_issue_s"] >= s["sum_compute_s"]
+    assert s["windows"] == 3 and s["windows"] + s["padded_rows"] == 2 * s["batches"]
 
 
 def test_pipelined_batches_overlap_under_load(service):
