@@ -246,7 +246,11 @@ exits non-zero):
                 under `*_b8`), of a whole training step at B=16 by three
                 routes: K3 + K4, K3 + the plain backward, autograd through the
                 nn.Modules (f32; and once more with TF32 products allowed),
-                and of phase 9's distill steps;
+                and of phase 9's distill steps; `hidden_epilogue_share`:
+                `gated_stack.hidden_epilogues` over `gated_stack.tiles` in
+                one run of K1, K1 at S=32, K3 and K2 at each batch (the share
+                of forward GEMM tiles whose epilogue ran under the other
+                consumer warpgroup's k loop);
                 under `gemm`, the stack's two GEMM kernels alone at M = 1,280
                 and M = 2,560 rows (us per call, TFLOP/s, tiles and waves)
                 with, as a yardstick only, one bf16 `torch.matmul` of the same
@@ -2770,6 +2774,19 @@ def main() -> int:
         for n, args in student_args.items():
             times[f"k2_student{n}_b8_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 5)
             times[f"k2_student{n}_b8_plain_ms"] = time_ms(lambda: fused_sample_ref(*args), 1, 0)
+
+        def hidden_share(fn):
+            """gated_stack.hidden_epilogues over gated_stack.tiles in one run of fn."""
+            before = (gated_stack.tiles, gated_stack.hidden_epilogues)
+            fn()
+            return (gated_stack.hidden_epilogues - before[1]) / (gated_stack.tiles - before[0])
+
+        times["hidden_epilogue_share"] = {
+            "k1": hidden_share(lambda: gated_stack(x, tb, cond, w, dil, kweights=kw)),
+            "k1_s32": hidden_share(lambda: gated_stack(x32, tb32, cond32, w, dil, kweights=kw)),
+            "k3": hidden_share(lambda: fwd_saves(x16, tb16, cond16, w, dil, kweights=kw)),
+            **{f"k2_b{bk}": hidden_share(lambda: fused_sample(*args, kweights=kw))
+               for bk, args in k2_args.items()}}
         for bk, args in k2_args.items():
             times[f"k2_b{bk}_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 3)
             # the plain process at B=8 takes seconds: one unwarmed run

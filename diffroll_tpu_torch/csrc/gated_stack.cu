@@ -52,11 +52,29 @@
 // tiles at S=2, two waves whichever way they are dealt), 32- and 128-column
 // pairs (lower reuse per byte from the L2, or too few tiles), a 3-stage ring
 // with two blocks an SM, a grid capped below the resident blocks.
+//
+// Schedules (gemm_sm90.cuh): where some block walks two tiles or more
+// (ntiles > grid: K2 from two clips up, K1 at S=4 and more, K3), both GEMMs
+// run ping-pong: two consumer warpgroups own alternate tiles of the block's
+// walk and hand the tensor cores to each other through two ordered barriers,
+// so a tile's epilogue (the gate's sigmoid * tanh and bias loads, the output's
+// x, skip and y traffic) runs while the other warpgroup multiplies. The block
+// is 384 threads: the producer warpgroup drops to 40 registers a thread
+// (setmaxnreg) and the consumers take 232, a tile's 128 f32 sums a thread;
+// the output epilogue loads its x and time bias before the tile's k loop.
+// Where no block gets a second tile there is nothing to overlap, and the
+// cooperative schedule (both warpgroups on one tile, 288 threads) stays:
+// ping-pong there measured 1.5% slower at 80 tiles and 5.8% at 40 (K2 at B=1
+// guided and unguided), from one warpgroup finishing all 128 rows. Either way
+// each output element is summed by one warpgroup in the same k order, so the
+// two schedules give the same bits (K1, K2 and K3 held against the
+// cooperative build on an H100).
 
 #include "gated_stack.cuh"
 
 #include <dlfcn.h>
 #include <math.h>
+#include <type_traits>
 
 #include "gemm_sm90.cuh"
 
@@ -72,6 +90,17 @@ prep_kernel(const bf16* __restrict__ x, const float* __restrict__ tb, int tb_bs,
   add_time_bias(x, tb, tb_bs, y, M, T, C);
 }
 
+// The two schedules of the forward GEMMs (gemm_sm90.cuh), one tile of 128
+// frames x a pair of 64 columns and a ring of 6 stages of 32 KB each: one
+// block an SM with ~190 KB of loads in flight.
+//   Cooperative: both consumer warpgroups on one tile, 64 rows each, then its
+//     epilogue together; 288 threads. plan_stack takes it where no block gets
+//     a second tile, so there is no epilogue to hide.
+//   PingPong: each consumer warpgroup owns whole tiles in turn, and a tile's
+//     epilogue runs under the other warpgroup's k loop; 384 threads.
+using Cooperative = sm90::TileGemm<64, 2, 6>;
+using PingPong = sm90::PingPongGemm<64, 6>;
+
 // One output tile of a block's walk: column pair n0, sequence, first frame.
 struct TileAt {
   int n0, seq, t0;
@@ -86,6 +115,15 @@ __device__ __forceinline__ TileAt tile_at(int tile, int C, int tiles_per_seq) {
 using sm90::Lane;
 using sm90::lane_of_thread;
 using sm90::store2;
+
+// A consumer thread's accumulator rows inside a 64-row half of its tile:
+// `half_row()` and 8 below; its columns inside every 8-column chunk:
+// `lane_col()` and the next (the Wgmma layout of gemm_sm90.cuh).
+__device__ __forceinline__ int half_row() {
+  const int t = threadIdx.x % 128;
+  return (t / 32) * 16 + (t % 32) / 4;
+}
+__device__ __forceinline__ int lane_col() { return 2 * (threadIdx.x % 4); }
 
 // sigmoid(a1) * tanh(a2) on the special-function unit (gemm_sm90.cuh).
 __device__ __forceinline__ float gate_fast(float a1, float a2) {
@@ -117,8 +155,61 @@ struct GateArgs {
   int tiles_per_seq, ntiles;
 };
 
+// The ping-pong gate epilogue of rows row0 .. row0 + 63 of a tile: the
+// biases (colbias + rowbias) at the thread's rows, loaded here where the other
+// warpgroup's k loop hides them, then g = sigmoid * tanh of sums + biases (and,
+// under SAVE, the pre-gate a): the cooperative epilogue's arithmetic.
+template <class G, bool SAVE>
+__device__ __forceinline__ void finish_gate(const GateArgs& p, const TileAt& at, int row0,
+                                            const float (&d)[G::ACC]) {
+  const size_t two_c = 2 * (size_t)p.C;
+  const int row = row0 + half_row(), col = lane_col();
+  float2 bias[2][G::BN / 8][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = at.t0 + row + 8 * h;
+    const size_t m = (size_t)at.seq * p.T + t;
+#pragma unroll
+    for (int j = 0; j < G::BN / 8; ++j) {
+      const int n = at.n0 + 8 * j + col;
+      float2 b1 = make_float2(0.0f, 0.0f), b2 = b1;
+      if (p.colbias) {
+        b1 = *reinterpret_cast<const float2*>(p.colbias + n);
+        b2 = *reinterpret_cast<const float2*>(p.colbias + p.C + n);
+      }
+      if (p.rowbias && t < p.T) {
+        const float2 r1 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + n);
+        const float2 r2 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + p.C + n);
+        b1.x += r1.x; b1.y += r1.y; b2.x += r2.x; b2.y += r2.y;
+      }
+      bias[h][j][0] = b1;
+      bias[h][j][1] = b2;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = at.t0 + row + 8 * h;
+    if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
+    const size_t m = (size_t)at.seq * p.T + t;
+#pragma unroll
+    for (int j = 0; j < G::BN / 8; ++j) {
+      const int n = at.n0 + 8 * j + col;
+      const float a1x = d[4 * j + 2 * h] + bias[h][j][0].x;
+      const float a1y = d[4 * j + 2 * h + 1] + bias[h][j][0].y;
+      const float a2x = d[4 * (j + G::BN / 8) + 2 * h] + bias[h][j][1].x;
+      const float a2y = d[4 * (j + G::BN / 8) + 2 * h + 1] + bias[h][j][1].y;
+      store2(p.g + m * p.C + n, gate_fast(a1x, a2x), gate_fast(a1y, a2y));
+      if constexpr (SAVE) {
+        store2(p.a_save + m * two_c + n, a1x, a1y);
+        store2(p.a_save + m * two_c + p.C + n, a2x, a2y);
+      }
+    }
+  }
+}
+
 // SAVE (the training forward) also stores the pre-gate activation. It is a
-// template argument so that the inference kernel carries none of it.
+// template argument so that the inference kernel carries none of it. G is
+// Cooperative or PingPong: the producer is the same, the consumers differ.
 template <class G, bool SAVE>
 __global__ void __launch_bounds__(G::THREADS)
 gate_kernel(const __grid_constant__ CUtensorMap map_y, const __grid_constant__ CUtensorMap map_cond,
@@ -130,8 +221,9 @@ gate_kernel(const __grid_constant__ CUtensorMap map_y, const __grid_constant__ C
   const int nk = (kc + p.kcond) / sm90::BK;
   int it = 0;
 
-  if (threadIdx.x >= G::NWG * 128) {  // the producer warp: one thread issues every copy
-    if (threadIdx.x == G::NWG * 128) {
+  if (threadIdx.x >= 2 * 128) {  // the producer: one thread issues every copy
+    if constexpr (std::is_same_v<G, PingPong>) sm90::regs_dec<G::PRODUCER_REGS>();
+    if (threadIdx.x == 2 * 128) {
       sm90::tma_prefetch_map(&map_y);
       sm90::tma_prefetch_map(&map_w);
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
@@ -155,55 +247,59 @@ gate_kernel(const __grid_constant__ CUtensorMap map_y, const __grid_constant__ C
             pair_box<G>{&map_w, at.n0, p.C, p.layer}, it);
       }
     }
-    return;
-  }
-
-  const Lane ln = lane_of_thread();
-  const size_t two_c = 2 * (size_t)p.C;
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
-    // The biases do not depend on the products: their loads are issued before
-    // the k loop and land while it runs.
-    float2 bias[2][G::BN / 8][2];
+  } else if constexpr (std::is_same_v<G, PingPong>) {
+    sm90::regs_inc<G::CONSUMER_REGS>();
+    gemm.consume_tiles(p.ntiles, nk, [](int) {}, [&](int tile, int row0, const float(&d)[G::ACC]) {
+      finish_gate<G, SAVE>(p, tile_at<G>(tile, p.C, p.tiles_per_seq), row0, d);
+    });
+  } else {
+    const Lane ln = lane_of_thread();
+    const size_t two_c = 2 * (size_t)p.C;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
+      // The biases do not depend on the products: their loads are issued before
+      // the k loop and land while it runs.
+      float2 bias[2][G::BN / 8][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = at.t0 + ln.row + 8 * h;
-      const size_t m = (size_t)at.seq * p.T + t;
+      for (int h = 0; h < 2; ++h) {
+        const int t = at.t0 + ln.row + 8 * h;
+        const size_t m = (size_t)at.seq * p.T + t;
 #pragma unroll
-      for (int j = 0; j < G::BN / 8; ++j) {
-        const int n = at.n0 + 8 * j + ln.col;
-        float2 b1 = make_float2(0.0f, 0.0f), b2 = b1;
-        if (p.colbias) {
-          b1 = *reinterpret_cast<const float2*>(p.colbias + n);
-          b2 = *reinterpret_cast<const float2*>(p.colbias + p.C + n);
+        for (int j = 0; j < G::BN / 8; ++j) {
+          const int n = at.n0 + 8 * j + ln.col;
+          float2 b1 = make_float2(0.0f, 0.0f), b2 = b1;
+          if (p.colbias) {
+            b1 = *reinterpret_cast<const float2*>(p.colbias + n);
+            b2 = *reinterpret_cast<const float2*>(p.colbias + p.C + n);
+          }
+          if (p.rowbias && t < p.T) {
+            const float2 r1 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + n);
+            const float2 r2 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + p.C + n);
+            b1.x += r1.x; b1.y += r1.y; b2.x += r2.x; b2.y += r2.y;
+          }
+          bias[h][j][0] = b1;
+          bias[h][j][1] = b2;
         }
-        if (p.rowbias && t < p.T) {
-          const float2 r1 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + n);
-          const float2 r2 = *reinterpret_cast<const float2*>(p.rowbias + m * two_c + p.C + n);
-          b1.x += r1.x; b1.y += r1.y; b2.x += r2.x; b2.y += r2.y;
-        }
-        bias[h][j][0] = b1;
-        bias[h][j][1] = b2;
       }
-    }
-    float d[G::ACC];
-    gemm.consume(d, ln.wg, nk, it);
+      float d[G::ACC];
+      gemm.consume(d, ln.wg, nk, it);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = at.t0 + ln.row + 8 * h;
-      if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
-      const size_t m = (size_t)at.seq * p.T + t;
+      for (int h = 0; h < 2; ++h) {
+        const int t = at.t0 + ln.row + 8 * h;
+        if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
+        const size_t m = (size_t)at.seq * p.T + t;
 #pragma unroll
-      for (int j = 0; j < G::BN / 8; ++j) {
-        const int n = at.n0 + 8 * j + ln.col;
-        const float a1x = d[4 * j + 2 * h] + bias[h][j][0].x;
-        const float a1y = d[4 * j + 2 * h + 1] + bias[h][j][0].y;
-        const float a2x = d[4 * (j + G::BN / 8) + 2 * h] + bias[h][j][1].x;
-        const float a2y = d[4 * (j + G::BN / 8) + 2 * h + 1] + bias[h][j][1].y;
-        store2(p.g + m * p.C + n, gate_fast(a1x, a2x), gate_fast(a1y, a2y));
-        if constexpr (SAVE) {
-          store2(p.a_save + m * two_c + n, a1x, a1y);
-          store2(p.a_save + m * two_c + p.C + n, a2x, a2y);
+        for (int j = 0; j < G::BN / 8; ++j) {
+          const int n = at.n0 + 8 * j + ln.col;
+          const float a1x = d[4 * j + 2 * h] + bias[h][j][0].x;
+          const float a1y = d[4 * j + 2 * h + 1] + bias[h][j][0].y;
+          const float a2x = d[4 * (j + G::BN / 8) + 2 * h] + bias[h][j][1].x;
+          const float a2y = d[4 * (j + G::BN / 8) + 2 * h + 1] + bias[h][j][1].y;
+          store2(p.g + m * p.C + n, gate_fast(a1x, a2x), gate_fast(a1y, a2y));
+          if constexpr (SAVE) {
+            store2(p.a_save + m * two_c + n, a1x, a1y);
+            store2(p.a_save + m * two_c + p.C + n, a2x, a2y);
+          }
         }
       }
     }
@@ -224,6 +320,78 @@ struct OutArgs {
   int tiles_per_seq, ntiles;
 };
 
+// What the ping-pong output epilogue reads besides skip, loaded before the
+// tile's k loop: x at the thread's four rows (bf16 pairs) and the next layer's
+// time bias (one row a sequence), 48 registers beside the 128 sums. (On an
+// H100, K2 at B=8 took 11.6-12.3% less time than the cooperative build with
+// these loads in the epilogue, 13.0-14.4% less with them here.) Rows past the
+// sequence are not read.
+template <class G>
+struct OutEarly {
+  unsigned int x[2][2][G::BN / 8];  // [64-row half][row, row + 8][chunk]
+  float2 tb[G::BN / 8];
+  __device__ __forceinline__ void load(const OutArgs& p, const float* tb_next, const TileAt& at) {
+    const int col = lane_col();
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = at.t0 + 64 * r + half_row() + 8 * h;
+        const size_t rw = ((size_t)at.seq * p.T + t) * p.C + at.n0 + col;
+#pragma unroll
+        for (int j = 0; j < G::BN / 8; ++j)
+          x[r][h][j] = t < p.T ? *reinterpret_cast<const unsigned int*>(p.x_in + rw + 8 * j) : 0u;
+      }
+    const float* tbn = tb_next ? tb_next + (size_t)at.seq * p.tb_bs + at.n0 + col : nullptr;
+#pragma unroll
+    for (int j = 0; j < G::BN / 8; ++j)
+      tb[j] = tbn ? *reinterpret_cast<const float2*>(tbn + 8 * j) : make_float2(0.0f, 0.0f);
+  }
+};
+
+// The cooperative output epilogue's arithmetic for half R of a ping-pong tile,
+// on x and the time bias loaded early; both rows' skip loads are issued before
+// any store.
+template <class G, int R>
+__device__ __forceinline__ void finish_out_early(const OutArgs& p, const OutEarly<G>& e,
+                                                 const TileAt& at, const float (&d)[G::ACC]) {
+  const int col = lane_col();
+  float2 sv[2][G::BN / 8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = at.t0 + 64 * R + half_row() + 8 * h;
+    const size_t rw = ((size_t)at.seq * p.T + t) * p.C + at.n0 + col;
+#pragma unroll
+    for (int j = 0; j < G::BN / 8; ++j)
+      sv[h][j] = p.accumulate && t < p.T ? *reinterpret_cast<const float2*>(p.skip + rw + 8 * j)
+                                         : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = at.t0 + 64 * R + half_row() + 8 * h;
+    if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
+    const size_t rw = ((size_t)at.seq * p.T + t) * p.C + at.n0 + col;
+#pragma unroll
+    for (int j = 0; j < G::BN / 8; ++j) {
+      const int n = at.n0 + 8 * j + col;
+      const float2 b_r = *reinterpret_cast<const float2*>(p.bo + n);
+      const float2 b_s = *reinterpret_cast<const float2*>(p.bo + p.C + n);
+      const float2 xv = sm90::unpack_bf16x2(e.x[R][h][j]);
+      const __nv_bfloat162 xq =
+          __floats2bfloat162_rn((xv.x + d[4 * j + 2 * h] + b_r.x) * SQRT_HALF,
+                                (xv.y + d[4 * j + 2 * h + 1] + b_r.y) * SQRT_HALF);
+      *reinterpret_cast<__nv_bfloat162*>(p.x_out + rw + 8 * j) = xq;
+      *reinterpret_cast<float2*>(p.skip + rw + 8 * j) =
+          make_float2((sv[h][j].x + d[4 * (j + G::BN / 8) + 2 * h] + b_s.x) * p.scale,
+                      (sv[h][j].y + d[4 * (j + G::BN / 8) + 2 * h + 1] + b_s.y) * p.scale);
+      if (p.tb_next) {  // y for the next layer, from the bf16-rounded x
+        const float2 xr = __bfloat1622float2(xq);
+        store2(p.y + rw + 8 * j, xr.x + e.tb[j].x, xr.y + e.tb[j].y);
+      }
+    }
+  }
+}
+
 template <class G>
 __global__ void __launch_bounds__(G::THREADS)
 out_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_w,
@@ -234,8 +402,9 @@ out_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CU
   const int nk = p.C / sm90::BK;
   int it = 0;
 
-  if (threadIdx.x >= G::NWG * 128) {
-    if (threadIdx.x == G::NWG * 128) {
+  if (threadIdx.x >= 2 * 128) {
+    if constexpr (std::is_same_v<G, PingPong>) sm90::regs_dec<G::PRODUCER_REGS>();
+    if (threadIdx.x == 2 * 128) {
       sm90::tma_prefetch_map(&map_g);
       sm90::tma_prefetch_map(&map_w);
       for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
@@ -251,48 +420,63 @@ out_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CU
             pair_box<G>{&map_w, at.n0, p.C, p.layer}, it);
       }
     }
-    return;
-  }
-
-  const Lane ln = lane_of_thread();
-  const float* tb_next = p.tb_next;
-  if (tb_next && p.step) tb_next += (size_t)*p.step * p.tb_ss;
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
-    float d[G::ACC];
-    gemm.consume(d, ln.wg, nk, it);
+  } else if constexpr (std::is_same_v<G, PingPong>) {
+    sm90::regs_inc<G::CONSUMER_REGS>();
+    const float* tb_next = p.tb_next;
+    if (tb_next && p.step) tb_next += (size_t)*p.step * p.tb_ss;
+    OutEarly<G> early;
+    gemm.consume_tiles(
+        p.ntiles, nk,
+        [&](int tile) { early.load(p, tb_next, tile_at<G>(tile, p.C, p.tiles_per_seq)); },
+        [&](int tile, int row0, const float(&d)[G::ACC]) {
+          const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
+          if (row0 == 0)
+            finish_out_early<G, 0>(p, early, at, d);
+          else
+            finish_out_early<G, 1>(p, early, at, d);
+        });
+  } else {
+    const Lane ln = lane_of_thread();
+    const float* tb_next = p.tb_next;
+    if (tb_next && p.step) tb_next += (size_t)*p.step * p.tb_ss;
+    for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      const TileAt at = tile_at<G>(tile, p.C, p.tiles_per_seq);
+      float d[G::ACC];
+      gemm.consume(d, ln.wg, nk, it);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int t = at.t0 + ln.row + 8 * h;
-      if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
-      const size_t row = ((size_t)at.seq * p.T + t) * p.C + at.n0 + ln.col;
-      const float* tbn = tb_next ? tb_next + (size_t)at.seq * p.tb_bs + at.n0 + ln.col : nullptr;
-      // every load of the row first: x and skip may alias what is stored below.
-      // (Issuing them before the k loop was measured and is slower: a block of
-      // 288 threads leaves 168 registers a thread, and the accumulators spill.)
-      float2 xv[G::BN / 8], sv[G::BN / 8], tv[G::BN / 8];
+      for (int h = 0; h < 2; ++h) {
+        const int t = at.t0 + ln.row + 8 * h;
+        if (t >= p.T) continue;  // a ragged last tile: rows past the sequence are not stored
+        const size_t row = ((size_t)at.seq * p.T + t) * p.C + at.n0 + ln.col;
+        const float* tbn = tb_next ? tb_next + (size_t)at.seq * p.tb_bs + at.n0 + ln.col : nullptr;
+        // every load of the row first: x and skip may alias what is stored below.
+        // (Issuing them before the k loop was measured and is slower: a block of
+        // 288 threads leaves 168 registers a thread, and the accumulators spill.)
+        float2 xv[G::BN / 8], sv[G::BN / 8], tv[G::BN / 8];
 #pragma unroll
-      for (int j = 0; j < G::BN / 8; ++j) {
-        xv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.x_in + row + 8 * j));
-        sv[j] = p.accumulate ? *reinterpret_cast<const float2*>(p.skip + row + 8 * j)
-                             : make_float2(0.0f, 0.0f);
-        tv[j] = tbn ? *reinterpret_cast<const float2*>(tbn + 8 * j) : make_float2(0.0f, 0.0f);
-      }
+        for (int j = 0; j < G::BN / 8; ++j) {
+          xv[j] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(p.x_in + row + 8 * j));
+          sv[j] = p.accumulate ? *reinterpret_cast<const float2*>(p.skip + row + 8 * j)
+                               : make_float2(0.0f, 0.0f);
+          tv[j] = tbn ? *reinterpret_cast<const float2*>(tbn + 8 * j) : make_float2(0.0f, 0.0f);
+        }
 #pragma unroll
-      for (int j = 0; j < G::BN / 8; ++j) {
-        const int n = at.n0 + 8 * j + ln.col;
-        const float2 b_r = *reinterpret_cast<const float2*>(p.bo + n);
-        const float2 b_s = *reinterpret_cast<const float2*>(p.bo + p.C + n);
-        const __nv_bfloat162 xq =
-            __floats2bfloat162_rn((xv[j].x + d[4 * j + 2 * h] + b_r.x) * SQRT_HALF,
-                                  (xv[j].y + d[4 * j + 2 * h + 1] + b_r.y) * SQRT_HALF);
-        *reinterpret_cast<__nv_bfloat162*>(p.x_out + row + 8 * j) = xq;
-        *reinterpret_cast<float2*>(p.skip + row + 8 * j) =
-            make_float2((sv[j].x + d[4 * (j + G::BN / 8) + 2 * h] + b_s.x) * p.scale,
-                        (sv[j].y + d[4 * (j + G::BN / 8) + 2 * h + 1] + b_s.y) * p.scale);
-        if (tbn) {  // y for the next layer, from the bf16-rounded x
-          const float2 xr = __bfloat1622float2(xq);
-          store2(p.y + row + 8 * j, xr.x + tv[j].x, xr.y + tv[j].y);
+        for (int j = 0; j < G::BN / 8; ++j) {
+          const int n = at.n0 + 8 * j + ln.col;
+          const float2 b_r = *reinterpret_cast<const float2*>(p.bo + n);
+          const float2 b_s = *reinterpret_cast<const float2*>(p.bo + p.C + n);
+          const __nv_bfloat162 xq =
+              __floats2bfloat162_rn((xv[j].x + d[4 * j + 2 * h] + b_r.x) * SQRT_HALF,
+                                    (xv[j].y + d[4 * j + 2 * h + 1] + b_r.y) * SQRT_HALF);
+          *reinterpret_cast<__nv_bfloat162*>(p.x_out + row + 8 * j) = xq;
+          *reinterpret_cast<float2*>(p.skip + row + 8 * j) =
+              make_float2((sv[j].x + d[4 * (j + G::BN / 8) + 2 * h] + b_s.x) * p.scale,
+                          (sv[j].y + d[4 * (j + G::BN / 8) + 2 * h + 1] + b_s.y) * p.scale);
+          if (tbn) {  // y for the next layer, from the bf16-rounded x
+            const float2 xr = __bfloat1622float2(xq);
+            store2(p.y + row + 8 * j, xr.x + tv[j].x, xr.y + tv[j].y);
+          }
         }
       }
     }
@@ -340,29 +524,31 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1
 
 namespace {
 
-// The tile that is built: 128 frames (two consumer warpgroups) x a pair of 64
-// columns, behind a ring of 6 stages of 32 KB: one block an SM with ~190 KB
-// of loads in flight.
-using Tile = sm90::TileGemm<64, 2, 6>;
+// Once per process: the kernels' shared-memory size, and how many blocks the
+// card holds (one an SM under either schedule: the ring takes 192 KB).
+template <class G>
+cudaError_t set_up(int* per_sm) {
+  const void* fns[] = {(const void*)gate_kernel<G, false>, (const void*)gate_kernel<G, true>,
+                       (const void*)out_kernel<G>};
+  for (const void* fn : fns) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gate_kernel<G, false>, G::THREADS,
+                                                       G::SMEM_BYTES);
+}
 
-// Once per process: the kernels' shared-memory size, and how many blocks the card holds.
 cudaError_t resident_blocks(int* out) {
   static int blocks = 0;
   if (!blocks) {
-    const void* fns[] = {(const void*)gate_kernel<Tile, false>,
-                         (const void*)gate_kernel<Tile, true>, (const void*)out_kernel<Tile>};
-    for (const void* fn : fns) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_BYTES);
-      if (e != cudaSuccess) return e;
-    }
-    int dev = 0, sms = 0, per_sm = 0;
+    int dev = 0, sms = 0, coop = 0, pp = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gate_kernel<Tile, false>,
-                                                        Tile::THREADS, Tile::SMEM_BYTES);
+    if (e == cudaSuccess) e = set_up<Cooperative>(&coop);
+    if (e == cudaSuccess) e = set_up<PingPong>(&pp);
     if (e != cudaSuccess) return e;
+    const int per_sm = coop < pp ? coop : pp;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     blocks = sms * per_sm;
   }
@@ -374,26 +560,55 @@ cudaError_t resident_blocks(int* out) {
 
 cudaError_t plan_stack(const StackArgs& a, StackPlan* p) {
   const int kcond = a.cond ? a.mp : 0;
-  if (a.T < 1 || a.M % a.T || a.C % Tile::BN || a.C % sm90::BK || kcond % sm90::BK)
+  if (a.T < 1 || a.M % a.T || a.C % PingPong::BN || a.C % sm90::BK || kcond % sm90::BK)
     return cudaErrorInvalidValue;
   const uint64_t S = a.M / a.T, T = a.T, C = a.C, two_c = 2 * C;
   int resident = 0;
   cudaError_t e = resident_blocks(&resident);
   if (e != cudaSuccess) return e;
   p->a = a;
-  p->tiles_per_seq = (a.T + Tile::BM - 1) / Tile::BM;
-  p->ntiles = (int)S * p->tiles_per_seq * (a.C / Tile::BN);
+  p->tiles_per_seq = (a.T + PingPong::BM - 1) / PingPong::BM;
+  p->ntiles = (int)S * p->tiles_per_seq * (a.C / PingPong::BN);
   p->grid = p->ntiles < resident ? p->ntiles : resident;
-  e = make_map(&p->map_y, a.y, C, T, S, C, T * C, Tile::BM);
-  if (e == cudaSuccess) e = make_map(&p->map_g, a.g, C, T, S, C, T * C, Tile::BM);
+  // ping-pong where some block gets a second tile, whose k loop can hide the
+  // first tile's epilogue; with one tile a block there is nothing to overlap
+  p->ping_pong = p->ntiles > p->grid;
+  e = make_map(&p->map_y, a.y, C, T, S, C, T * C, PingPong::BM);
+  if (e == cudaSuccess) e = make_map(&p->map_g, a.g, C, T, S, C, T * C, PingPong::BM);
   if (e == cudaSuccess && kcond)
-    e = make_map(&p->map_cond, a.cond, a.mp, T, S, a.mp, T * a.mp, Tile::BM);
+    e = make_map(&p->map_cond, a.cond, a.mp, T, S, a.mp, T * a.mp, PingPong::BM);
   if (e == cudaSuccess)
     e = make_map(&p->map_wcat, a.wcat, two_c, a.w_rows, a.L, two_c, a.w_rows * two_c, sm90::BK);
   if (e == cudaSuccess)
     e = make_map(&p->map_wo, a.wo, two_c, C, a.L, two_c, C * two_c, sm90::BK);
   return e;
 }
+
+void count_tiles(const StackPlan& p, int passes, int* out) {
+  const int gemms = passes * p.a.L * ((p.a.parts & 1) + ((p.a.parts >> 1) & 1));
+  out[0] = gemms * p.ntiles;
+  out[1] = gemms * (p.ntiles - p.grid);  // every tile of a block's walk but its last
+}
+
+namespace {
+
+template <class G>
+void launch_gemms(const StackPlan& p, const GateArgs& ga, const OutArgs& oa,
+                  const CUtensorMap& map_cond, cudaStream_t stream) {
+  const StackArgs& a = p.a;
+  if (a.parts & 1) {
+    if (a.a_save)
+      gate_kernel<G, true><<<p.grid, G::THREADS, G::SMEM_BYTES, stream>>>(p.map_y, map_cond,
+                                                                          p.map_wcat, ga);
+    else
+      gate_kernel<G, false><<<p.grid, G::THREADS, G::SMEM_BYTES, stream>>>(p.map_y, map_cond,
+                                                                           p.map_wcat, ga);
+  }
+  if (a.parts & 2)
+    out_kernel<G><<<p.grid, G::THREADS, G::SMEM_BYTES, stream>>>(p.map_g, p.map_wo, oa);
+}
+
+}  // namespace
 
 cudaError_t run_stack(const StackPlan& p, const float* tb, const int* step, int tb_ss,
                       cudaStream_t stream) {
@@ -418,14 +633,6 @@ cudaError_t run_stack(const StackPlan& p, const float* tb, const int* step, int 
     ga.tiles_per_seq = p.tiles_per_seq;
     ga.ntiles = p.ntiles;
     const CUtensorMap& map_cond = a.cond ? p.map_cond : p.map_y;  // unread without lanes
-    if (a.parts & 1) {
-      if (a.a_save)
-        gate_kernel<Tile, true><<<p.grid, Tile::THREADS, Tile::SMEM_BYTES, stream>>>(
-            p.map_y, map_cond, p.map_wcat, ga);
-      else
-        gate_kernel<Tile, false><<<p.grid, Tile::THREADS, Tile::SMEM_BYTES, stream>>>(
-            p.map_y, map_cond, p.map_wcat, ga);
-    }
 
     OutArgs oa;
     oa.bo = a.bo + l * two_c;
@@ -444,17 +651,20 @@ cudaError_t run_stack(const StackPlan& p, const float* tb, const int* step, int 
     oa.scale = l == a.L - 1 ? 1.0f / sqrtf((float)a.L) : 1.0f;
     oa.tiles_per_seq = p.tiles_per_seq;
     oa.ntiles = p.ntiles;
-    if (a.parts & 2)
-      out_kernel<Tile><<<p.grid, Tile::THREADS, Tile::SMEM_BYTES, stream>>>(p.map_g, p.map_wo,
-                                                                            oa);
+    if (p.ping_pong)
+      launch_gemms<PingPong>(p, ga, oa, map_cond, stream);
+    else
+      launch_gemms<Cooperative>(p, ga, oa, map_cond, stream);
   }
   return cudaGetLastError();
 }
 
-cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream) {
+cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream, int* tiles) {
   StackPlan plan;
-  const cudaError_t e = plan_stack(a, &plan);
-  return e != cudaSuccess ? e : run_stack(plan, a.tb, nullptr, 0, stream);
+  cudaError_t e = plan_stack(a, &plan);
+  if (e == cudaSuccess) e = run_stack(plan, a.tb, nullptr, 0, stream);
+  if (e == cudaSuccess && tiles) count_tiles(plan, 1, tiles);
+  return e;
 }
 
 }  // namespace drk
@@ -464,13 +674,16 @@ extern "C" {
 const char* drk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // K1 entry: one pass of the stack. Pointers are device pointers except
-// `dil` (a host int[L]); see drk::StackArgs for shapes. `parts` is 3; 1 and 2
-// launch the gate or the output GEMMs alone (for timing: the result is void).
+// `dil` (a host int[L]) and `tiles` (a host int[2] that receives the pass's
+// output tiles over its GEMM launches and, of those, the tiles whose epilogue
+// ran under the other consumer warpgroup's k loop); see drk::StackArgs for
+// shapes. `parts` is 3; 1 and 2 launch the gate or the output GEMMs alone (for
+// timing: the result is void).
 int drk_gated_stack(void* x, void* skip, void* g, void* y, const void* tb, int tb_ls, int tb_bs,
                     const void* cond, int mp, const void* wcat, int w_rows,
                     const void* colbias, const void* rowbias, const void* wo,
                     const void* bo, const void* dil, int L, int M, int T, int C, int taps,
-                    int parts, void* stream) {
+                    int parts, void* stream, void* tiles) {
   drk::StackArgs a;
   a.x = static_cast<drk::bf16*>(x);
   a.skip = static_cast<float*>(skip);
@@ -494,7 +707,7 @@ int drk_gated_stack(void* x, void* skip, void* g, void* y, const void* tb, int t
   a.C = C;
   a.taps = taps;
   a.parts = parts;
-  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream));
+  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream), static_cast<int*>(tiles));
 }
 
 }  // extern "C"

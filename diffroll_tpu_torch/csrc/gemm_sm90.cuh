@@ -36,6 +36,12 @@
 // Registers: a block of 2 x 128 + 32 threads is granted 168 registers a thread,
 // which holds the 64 accumulators and the epilogue with no spill to speak of
 // (-Xptxas -v), so the roles trade no registers (no setmaxnreg).
+// That is the cooperative schedule (TileGemm::consume): both consumer
+// warpgroups run one tile's k loop and then its epilogue, and the tensor
+// cores wait out the epilogue. The backward's kernels keep it. The forward's
+// two GEMMs take PingPongGemm below where a block walks two tiles or more:
+// the same tile, ring and producer, but each consumer warpgroup owns whole
+// tiles in turn and its epilogue runs under the other's k loop.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder itself is looked up at run time
@@ -304,6 +310,116 @@ struct TileGemm {
     }
     wgmma_wait<0>();
     if (elected && prev >= 0) mbar_arrive(empty(prev));
+  }
+};
+
+// setmaxnreg: a warpgroup gives up or takes registers of the block's pool.
+// Every warp of the warpgroup executes it, on a path that never rejoins the
+// other roles' (or ptxas ignores it).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The ping-pong schedule of the forward GEMMs (gate_kernel, out_kernel): the
+// tile (BM = 128 rows x a pair of BN columns, A K-major, B MN-major), the ring
+// and the producer of TileGemm<BN, 2, STAGES>, but each consumer warpgroup
+// owns whole tiles, so one tile's epilogue runs while the other warpgroup
+// multiplies the next.
+//   * Roles: consumer warpgroups 0 and 1 (threads 0-255), then a producer
+//     warpgroup (256-383) whose first thread issues every copy. The producer
+//     gives its registers up to 40 a thread and the consumers take 232 (the
+//     block's 384 x 168 at launch): a tile's 128 f32 sums a thread and its
+//     epilogue.
+//   * Walk: block b's tiles are b + j * gridDim.x, j = 0, 1, ...; the producer
+//     loads their k tiles in that order and consumer warpgroup j % 2 takes
+//     tile j, reading ring positions j nk .. j nk + nk - 1. A stage is read by
+//     one warpgroup, so its `empty` barrier waits for one arrival.
+//   * Order: warpgroup w waits on `order(w)` for its turn, issues its tile's
+//     k loop (two m64 x n(2BN) x k16 wgmma a k16 slice, one for each 64 rows),
+//     then arrives on the other's `order` while its last k tile is still in
+//     flight, waits for its own products and runs its epilogue. Turns strictly
+//     alternate, so a parity wait is never a phase behind.
+//   * Sums: every output element is summed by one warpgroup, by the same
+//     instruction over the same shared-memory operands in the same k order as
+//     under the cooperative TileGemm::consume: the two schedules give the
+//     same bits.
+template <int BN_, int STAGES_>
+struct PingPongGemm : TileGemm<BN_, 2, STAGES_> {
+  using Base = TileGemm<BN_, 2, STAGES_>;
+  using Base::A_BYTES;
+  using Base::BOX_BYTES;
+  using Base::BN;
+  using Base::STAGES;
+  static constexpr int CONSUMERS = 2 * 128;  // threads of the two consumer warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;
+  static constexpr int SMEM_BYTES = Base::SMEM_BYTES + 16;  // the two order barriers
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(CONSUMERS * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536, "one block an SM");
+
+  __device__ __forceinline__ uint32_t order(int wg) const { return this->full(2 * STAGES + wg); }
+
+  __device__ __forceinline__ void init(unsigned char* smem_raw) {
+    this->base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(this->full(s), 1);
+        mbar_init(this->empty(s), 1);
+      }
+      mbar_init(order(0), 128);
+      mbar_init(order(1), 128);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // Consumer warpgroup threadIdx.x / 128 over its tiles of the block's walk:
+  // `start(tile)` runs before the tile's turn (loads issued there land while
+  // the warpgroup waits and multiplies), then `finish(tile, row0, d)` finishes
+  // rows row0 .. row0 + 63 of the tile from their sums d (Wgmma's layout), for
+  // row0 = 0 and then 64.
+  template <class Start, class Finish>
+  __device__ __forceinline__ void consume_tiles(int ntiles, int nk, Start start,
+                                                Finish finish) const {
+    const int wg = threadIdx.x / 128;
+    const bool elected = threadIdx.x % 128 == 0;
+    constexpr int A_HALF = 64 * 128;  // bytes from row 0 of a K-major A box to row 64
+    int turn = 0;
+    for (int j = wg; (int)blockIdx.x + j * (int)gridDim.x < ntiles; j += 2, ++turn) {
+      const int tile = (int)blockIdx.x + j * (int)gridDim.x;
+      start(tile);
+      float d[2][Base::ACC];
+      mbar_wait(order(wg), (turn & 1) ^ wg ^ 1);  // warpgroup 0's first turn passes at once
+      int it = j * nk, prev = -1;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(this->full(s), (it / STAGES) & 1);
+        const uint64_t da = smem_desc(this->stage(s), 16, 1024, 1);
+        const uint64_t db = smem_desc(this->stage(s) + A_BYTES, BOX_BYTES, 1024, 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            Wgmma<2 * BN>::template mma<0, 1>(d[r], da + ((r * A_HALF + kk * 32) >> 4),
+                                              db + kk * (2048 >> 4), (kt | kk) != 0);
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();  // k tile kt - 1 has been read: its stage may be refilled
+          if (elected) mbar_arrive(this->empty(prev));
+        }
+        prev = s;
+      }
+      mbar_arrive(order(wg ^ 1));  // the other warpgroup's turn: its k loop runs under our epilogue
+      wgmma_wait<0>();
+      if (elected) mbar_arrive(this->empty(prev));
+      finish(tile, 0, d[0]);
+      finish(tile, 64, d[1]);
+    }
   }
 };
 

@@ -15,7 +15,11 @@ runs `gated_stack_ref`, the plain f32 PyTorch version, for CPU tensors.
 
 The kernel's tile list is laid out here as the kernel walks it
 (`stack_tiles`, `tap_frames`, `tile_waves`): a tile is BM frames of one
-sequence x one pair of BN-column slices (n, C + n).
+sequence x one pair of BN-column slices (n, C + n). `ping_pong_walk` deals a
+GEMM launch's tiles to its blocks' two consumer warpgroups as the ping-pong
+schedule does, and `hidden_epilogues` counts the tiles whose epilogue runs
+under the other warpgroup's k loop; `gated_stack.tiles` and
+`gated_stack.hidden_epilogues` add up the C entries' own counts of the same.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ BK = 64          # the kernel's k tile (one 128-byte swizzle row of bf16): C and
                  # padded conditioner width must be multiples
 COND_PAD = 256   # conditioner lanes, zero-padded (229 is not a multiple of 64)
 SMS = 132        # streaming multiprocessors of an H100
-BM = 128         # frames per tile (two consumer warpgroups of 64 rows)
+BM = 128         # frames per tile (two 64-row wgmma halves)
 BN = 64          # columns per half of a tile's column pair
 # timing only: 1 launches the gate GEMMs alone, 2 the output GEMMs alone (the result is void)
 PARTS = 3
@@ -202,6 +206,36 @@ def tile_waves(seqs: int, t_len: int, c: int) -> Tuple[int, int]:
     return tiles, -(-tiles // SMS)
 
 
+def ping_pong_walk(ntiles: int, grid: int) -> List[List[Tuple[int, int, int]]]:
+    """The ping-pong schedule's walk of one GEMM launch of `ntiles` tiles on
+    `grid` blocks: for each block, in the order the tensor cores take them,
+    (tile, consumer warpgroup, ring position of its first k tile in units of
+    a tile's k tiles). Block b's tiles are b, b + grid, ...; its j-th goes to
+    warpgroup j % 2 (csrc/gemm_sm90.cuh, PingPongGemm)."""
+    return [[(tile, j % 2, j) for j, tile in enumerate(range(b, ntiles, grid))]
+            for b in range(grid)]
+
+
+def hidden_epilogues(ntiles: int, grid: int) -> int:
+    """Tiles of one GEMM launch whose epilogue runs under the other consumer
+    warpgroup's k loop: every tile of a block's walk but its last."""
+    return ntiles - min(ntiles, grid)
+
+
+def pass_tiles(seqs: int, t_len: int, c: int, n_layers: int,
+               sms: int = SMS) -> Tuple[int, int]:
+    """(tiles, hidden epilogues) of one stack pass, 2L GEMM launches on
+    min(tiles, sms) persistent blocks: what the C entries count."""
+    tiles, _ = tile_waves(seqs, t_len, c)
+    return 2 * n_layers * tiles, 2 * n_layers * hidden_epilogues(tiles, min(tiles, sms))
+
+
+def count_tiles(counts) -> None:
+    """Add a C entry's (tiles, hidden epilogues) to the wrapper's counters."""
+    gated_stack.tiles += counts[0]
+    gated_stack.hidden_epilogues += counts[1]
+
+
 def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
                  cond_ptr: Optional[int], colbias: Optional[torch.Tensor],
                  rowbias_ptr: Optional[int], kw: KernelWeights, dil, t_len: int) -> None:
@@ -212,6 +246,7 @@ def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
     lib = _build.library()
     n_layers, c = kw.wo.shape[0], kw.wo.shape[1]
     m = x16.shape[0]
+    tiles = (ctypes.c_int * 2)()
     rc = lib.drk_gated_stack(
         x16.data_ptr(), skip.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
         tb_ptr, tb_ls, tb_bs,
@@ -219,9 +254,10 @@ def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
         None if colbias is None else colbias.data_ptr(), rowbias_ptr,
         kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
         n_layers, m, t_len, c, kw.taps, PARTS,
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, ctypes.addressof(tiles))
     _build.check(rc, "gated_stack")
     gated_stack.launches += 1
+    count_tiles(tiles)
 
 
 def dilation_array(dilations: Sequence[int]):
@@ -273,3 +309,7 @@ def gated_stack(
 
 
 gated_stack.launches = 0  # K1 passes launched (one per call of launch_stack)
+# every forward stack pass's (K1, K2's steps, K3) output tiles over its GEMM
+# launches, and those whose epilogue ran under the other warpgroup's k loop
+gated_stack.tiles = 0
+gated_stack.hidden_epilogues = 0

@@ -38,7 +38,7 @@ import torch
 from . import _build
 from .gated_stack import (
     SMS, SQRT_HALF, GatedStackWeights, KernelWeights, _check, _shift, check_kernel_shapes,
-    dilation_array, pad_cond)
+    count_tiles, dilation_array, pad_cond)
 
 BWD_TILE = 128  # the backward's tiles are 128 x 128: C and the padded conditioner width
 WGRAD_BOX = 64  # frames per k tile of a weight-gradient product
@@ -175,14 +175,16 @@ def fwd_saves(x, t_bias, cond, w: GatedStackWeights, dilations: Sequence[int],
     scratch = torch.empty(3, m, c, device=dev, dtype=torch.bfloat16)
     colbias = kw.b_eff if cond is not None else kw.b
     dil = dilation_array(dilations)
+    tiles = (ctypes.c_int * 2)()
     rc = _build.library().drk_gated_stack_fwd_saves(
         scratch[0].data_ptr(), skip.data_ptr(), scratch[1].data_ptr(), scratch[2].data_ptr(),
         tb.data_ptr(), bsz * c, c, None if cond16 is None else cond16.data_ptr(), kw.mp,
         kw.wcat.data_ptr(), kw.wcat.shape[1], colbias.data_ptr(), kw.wo.data_ptr(),
         kw.bo.data_ptr(), ctypes.addressof(dil), n_layers, m, t_len, c, kw.taps, xs.data_ptr(), a.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, ctypes.addressof(tiles))
     _build.check(rc, "gated_stack_fwd_saves")
     fwd_saves.launches += 1
+    count_tiles(tiles)
     return skip, xs.view(n_layers, bsz, t_len, c), a.view(n_layers, bsz, t_len, 2 * c)
 
 

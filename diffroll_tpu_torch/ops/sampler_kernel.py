@@ -30,6 +30,7 @@ from .gated_stack import (
     KernelWeights,
     _check,
     check_kernel_shapes,
+    count_tiles,
     dilation_array,
     gated_stack,
     gated_stack_ref,
@@ -206,7 +207,7 @@ def fused_sample(
     else:
         rowbias_ptr, colbias_ptr = None, kw.b.data_ptr()
     dil = dilation_array(dilations)
-    passes = ctypes.c_int(0)
+    passes, tiles = ctypes.c_int(0), (ctypes.c_int * 2)()
     step = torch.empty(1, device=dev, dtype=torch.int32)  # the device's step counter
     _build.check(lib.drk_sample_run(
         x.data_ptr(), noise_ptr, tab.data_ptr(), n, tb_ptr, win, bin_, wskip, bskip, wout,
@@ -214,8 +215,9 @@ def fused_sample(
         scratch[1].data_ptr(), skip[1].data_ptr(), kw.wcat.data_ptr(), kw.wcat.shape[1],
         colbias_ptr, rowbias_ptr, kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
         n_layers, rows, t_len, n_out, c, streams, kw.taps, step.data_ptr(), stream,
-        ctypes.addressof(passes)), "sample_run")
+        ctypes.addressof(passes), ctypes.addressof(tiles)), "sample_run")
     gated_stack.launches += passes.value
+    count_tiles(tiles)
     fused_sample.launches += 1
     return x
 

@@ -49,15 +49,35 @@ def _rel(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _assert_tiles_counted(before, want):
+    """The C entries' (tiles, hidden epilogues) against the Python mirror."""
+    got = (tgs.gated_stack.tiles - before[0], tgs.gated_stack.hidden_epilogues - before[1])
+    assert got == want
+
+
+def _counters():
+    return tgs.gated_stack.tiles, tgs.gated_stack.hidden_epilogues
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3, True), (3, 100, 128, 4, True),
                                    (2, 64, 64, 3, False), (2, 640, 512, 15, True),
                                    (2, 200, 64, 4, True), (3, 8, 64, 4, True),
-                                   (1, 130, 128, 5, False), (8, 640, 512, 15, True)],
+                                   (1, 130, 128, 5, False), (8, 640, 512, 15, True),
+                                   (140, 100, 128, 4, True), (300, 8, 64, 4, True)],
                          ids=["small", "ragged_rows", "nocond", "flagship",
                               "last_tile_crosses_T", "dilation_reaches_T", "two_rows_in_last_tile",
-                              "flagship_b8"])
+                              "flagship_b8", "ragged_rows_ping_pong",
+                              "dilation_reaches_T_ping_pong"])
 def test_stack_kernel_matches_plain(cuda_f32, shape):
+    """K1 against its plain version; the `_ping_pong` shapes give 280 and 300
+    tiles, so blocks walk two or three tiles and hand the tensor cores from
+    one consumer warpgroup to the other (ragged 100-frame tiles, taps that
+    leave the 8-frame clip)."""
     dev = cuda_f32
     b, t, c, layers, with_cond = shape
     torch.manual_seed(0)
@@ -68,22 +88,28 @@ def test_stack_kernel_matches_plain(cuda_f32, shape):
     tb = 0.1 * torch.randn(layers, b, c, device=dev)
     cond = torch.rand(b, t, 229, device=dev) if with_cond else None
     dil = tm.config.dilations()
-    before = tgs.gated_stack.launches
+    before, counted = tgs.gated_stack.launches, _counters()
     with torch.no_grad():
         out = tgs.gated_stack(x, tb, cond, w, dil, kweights=tgs.kernel_weights(w))
         ref = tgs.gated_stack_ref(x, tb, cond, w, dil)
     torch.cuda.synchronize()
     assert tgs.gated_stack.launches == before + 1
+    _assert_tiles_counted(counted, tgs.pass_tiles(b, t, c, layers, _sms()))
     assert _rel(out, ref) < BF16_GATE
     with pytest.raises(ValueError, match="kweights"):  # no silent per-call rebuild
         tgs.gated_stack(x, tb, cond, w, dil)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 100, 128, 4, True), (2, 640, 512, 15, True)],
-                         ids=["ragged_rows", "flagship"])
+@pytest.mark.parametrize("shape", [(3, 100, 128, 4, True), (2, 640, 512, 15, True),
+                                   (8, 640, 512, 15, True), (16, 640, 512, 15, True),
+                                   (140, 100, 128, 4, True)],
+                         ids=["ragged_rows", "flagship", "flagship_s8", "flagship_s16",
+                              "ragged_rows_ping_pong"])
 def test_stack_kernel_same_bits_every_run(cuda_f32, shape):
-    """No atomics and a fixed tile order: two runs on the same inputs agree bit for bit."""
+    """No atomics and a fixed tile order: two runs on the same inputs agree bit
+    for bit, with a block holding one tile (80 tiles at S=2), two or three
+    (320 at S=8) and four or five (640 at S=16) on the card's 132 SMs."""
     dev = cuda_f32
     b, t, c, layers, _ = shape
     torch.manual_seed(0)
@@ -95,12 +121,14 @@ def test_stack_kernel_same_bits_every_run(cuda_f32, shape):
     tb = 0.1 * torch.randn(layers, b, c, device=dev)
     cond = torch.rand(b, t, 229, device=dev)
     dil = tm.config.dilations()
+    counted = _counters()
     with torch.no_grad():
         first = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
         torch.randn(1 << 22, device=dev)  # other work on the stream in between
         second = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+    _assert_tiles_counted(counted, tuple(2 * n for n in tgs.pass_tiles(b, t, c, layers, _sms())))
 
 
 def _process_case(dev, guided, frames=64, c=64, layers=3, bsz=2):
@@ -218,14 +246,17 @@ TRAIN_IDS = ["small", "ragged_T", "flagship_b1", "taps_leave_clip", "nocond"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+@pytest.mark.parametrize("shape", TRAIN_SHAPES + [(16, 640, 512, 15, True)],
+                         ids=TRAIN_IDS + ["flagship_b16"])
 def test_fwd_saves_kernel_matches_plain(cuda_f32, shape):
     """K3: skip, xs and a against the plain forward-with-saves, and the skip
-    output bit-for-bit against K1 (the saves add stores, no arithmetic)."""
+    output bit-for-bit against K1 (the saves add stores, no arithmetic); at
+    B=16, 640 tiles on the ping-pong schedule."""
     dil, w, wq, kw, x, tb, cond, _ = _train_case(cuda_f32, shape)
-    before = tgt.fwd_saves.launches
+    before, counted = tgt.fwd_saves.launches, _counters()
     with torch.no_grad():
         skip, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
+        _assert_tiles_counted(counted, tgs.pass_tiles(*shape[:3], shape[3], _sms()))
         skip_r, xs_r, a_r = tgt.fwd_saves_ref(x, tb, cond, wq, dil)
         k1 = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
     torch.cuda.synchronize()
@@ -362,8 +393,13 @@ def test_fused_sample_flagship_batch8(cuda_f32, name, steps):
                 not generation, 0.5, stochastic)
         wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
         before = (fused_sample.launches, tgs.gated_stack.launches)
+        counted = _counters()
         out = fused_sample(*args, kweights=kw)
         again = fused_sample(*args, kweights=kw)
+        n_steps = tables.shape[0]
+        _assert_tiles_counted(counted, tuple(
+            2 * n_steps * k for k in tgs.pass_tiles(8 * (1 + (not generation)), 640, 512, 15,
+                                                    _sms())))
         ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
     via_task = task.sample(x_T, waveform=wav, noise=noise)[0]
     n = tables.shape[0]

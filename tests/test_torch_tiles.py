@@ -1,5 +1,6 @@
 """What surrounds the Hopper tile GEMM of the port's gated stack, on the CPU:
-the widths the kernel takes, its tile list, the frames its tap boxes cover
+the widths the kernel takes, its tile list, the ping-pong schedule's walk of
+it and its count of hidden epilogues, the frames its tap boxes cover
 (held against `gated_stack_ref`'s shifts), the backward's walks (the weight
 gradients box by box over whole-sequence splits, dy with the shift negated,
 held against `bwd_ref`) and its split planner, and the C entry points' argument
@@ -81,6 +82,75 @@ def test_stack_tiles(seqs, t_len, want):
 ])
 def test_tile_waves_as_the_source_note_quotes(seqs, t_len, c, tiles, waves):
     assert tgs.tile_waves(seqs, t_len, c) == (tiles, waves)
+
+
+@pytest.mark.parametrize("ntiles,grid", [(640, 132), (320, 132), (80, 80), (2560, 132),
+                                          (160, 132), (7, 3), (1, 1)])
+def test_ping_pong_walk_deals_every_tile_once(ntiles, grid):
+    """Every tile of a GEMM launch goes to exactly one (block, warpgroup),
+    once: block b takes b, b + grid, ... and hands them to warpgroups 0, 1,
+    0, ... in turn, each reading the next tile's k tiles of the ring."""
+    walk = tgs.ping_pong_walk(ntiles, grid)
+    assert len(walk) == grid
+    dealt = sorted(tile for block in walk for tile, _, _ in block)
+    assert dealt == list(range(ntiles))
+    for b, block in enumerate(walk):
+        assert [tile for tile, _, _ in block] == list(range(b, ntiles, grid))
+        assert [wg for _, wg, _ in block] == [j % 2 for j in range(len(block))]
+        assert [j for _, _, j in block] == list(range(len(block)))
+    # a block's every tile but its last has its epilogue under the next one's k loop
+    assert sum(len(block) - 1 for block in walk) == tgs.hidden_epilogues(ntiles, grid)
+
+
+@pytest.mark.parametrize("seqs,c,hidden,ratio", [
+    (16, 512, 508, 0.794),   # guided B=8: 640 tiles, 4-5 a block
+    (8, 512, 188, 0.588),    # unguided B=8: 320 tiles, 2-3 a block
+    (2, 512, 0, 0.0),        # guided B=1: 80 tiles, one a block
+    (64, 512, 2428, 0.948),  # training at B=64: 2,560 tiles
+])
+def test_hidden_epilogues_as_the_source_note_quotes(seqs, c, hidden, ratio):
+    """`gated_stack.hidden_epilogues` over `gated_stack.tiles` at the
+    benchmark's shapes, as the C entries count them (132 SMs, T=640, 15
+    layers: 2L GEMM launches a pass)."""
+    tiles, _ = tgs.tile_waves(seqs, 640, c)
+    assert tgs.hidden_epilogues(tiles, min(tiles, tgs.SMS)) == hidden
+    pass_tiles, pass_hidden = tgs.pass_tiles(seqs, 640, c, 15)
+    assert (pass_tiles, pass_hidden) == (30 * tiles, 30 * hidden)
+    assert round(pass_hidden / pass_tiles, 3) == ratio
+
+
+def test_count_tiles_adds_the_c_entries_counts():
+    before = (tgs.gated_stack.tiles, tgs.gated_stack.hidden_epilogues)
+    tgs.count_tiles((ctypes.c_int * 2)(19200, 15240))
+    assert (tgs.gated_stack.tiles - before[0],
+            tgs.gated_stack.hidden_epilogues - before[1]) == (19200, 15240)
+
+
+def _kernel_body(src, name):
+    """The source of a __global__ kernel, from its name to the next one."""
+    start = re.search(r"\b" + name + r"\(", src).start()
+    nxt = src.find("__global__", start)
+    return src[start:nxt if nxt > 0 else len(src)]
+
+
+@pytest.mark.parametrize("kernel", ["nt_kernel", "wgrad_kernel"])
+def test_backward_keeps_the_cooperative_schedule(kernel):
+    """K4's GEMMs are TileGemm's cooperative consumers (both warpgroups on one
+    tile); the ping-pong schedule is the forward kernels' alone."""
+    src = (_build.SRC_DIR / "gated_stack_train.cu").read_text()
+    assert re.search(r"using TileNT = sm90::TileGemm<", src)
+    assert re.search(r"using TileTN = sm90::TileGemm<", src)
+    body = _kernel_body(src, kernel)
+    assert "gemm.consume(d, ln.wg, nk, it)" in body
+    assert "PingPong" not in src and "consume_tiles" not in src and "setmaxnreg" not in src
+
+
+@pytest.mark.parametrize("kernel", ["gate_kernel", "out_kernel"])
+def test_forward_kernels_take_the_ping_pong_schedule(kernel):
+    src = (_build.SRC_DIR / "gated_stack.cu").read_text()
+    body = _kernel_body(src, kernel)
+    assert re.search(r"gemm\.consume_tiles\(\s*p\.ntiles,\s*nk,", body)
+    assert "regs_dec<G::PRODUCER_REGS>" in body and "regs_inc<G::CONSUMER_REGS>" in body
 
 
 def _box(y, b, frames):
