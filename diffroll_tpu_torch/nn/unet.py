@@ -13,6 +13,19 @@ attention of `down_0_attn` is its `fn` (flax hangs it under the parent as
 flax defaults kept: GroupNorm epsilon 1e-6, the tanh approximation of GELU,
 'SAME' convolutions. Attention is computed as the JAX package computes it,
 with einsum and softmax.
+
+Spans (`utils/profiling.py::span`, a `user_annotation` while a profile
+records, else one check), the forward's only:
+
+  unet.block         every ConvNeXt (or ResNet) block; a SpecUnet block's
+                     two streams together
+  unet.linear_attn   every `PreNormResidual(LinearAttention)`
+  unet.attn          the bottleneck's `PreNormResidual(Attention)`
+  unet.resample      every down- and up-sampler (a SpecUnet level's two
+                     streams together)
+
+`attn_rows` counts the rows (sequences) through the bottleneck's full
+attention in this process.
 """
 
 from __future__ import annotations
@@ -24,10 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .init import dense, lecun_normal
 
 GN_EPS = 1e-6    # flax nn.GroupNorm's default (PyTorch's is 1e-5)
 HEADS, DIM_HEAD = 4, 32
+attn_rows = 0   # rows through `Attention`, the bottleneck's full attention
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -105,11 +120,12 @@ class ConvNextBlock(nn.Module):
         self.res_conv = conv(dim_in, dim_out, 1) if dim_in != dim_out else None
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.ds_conv(x)
-        if t_emb is not None:
-            h = h + self.time_mlp(gelu(t_emb))[:, :, None, None]
-        h = self.conv2(self.norm2(gelu(self.conv1(self.norm1(h)))))
-        return h + (x if self.res_conv is None else self.res_conv(x))
+        with span("unet.block"):
+            h = self.ds_conv(x)
+            if t_emb is not None:
+                h = h + self.time_mlp(gelu(t_emb))[:, :, None, None]
+            h = self.conv2(self.norm2(gelu(self.conv1(self.norm1(h)))))
+            return h + (x if self.res_conv is None else self.res_conv(x))
 
 
 class ResnetBlock(nn.Module):
@@ -126,11 +142,12 @@ class ResnetBlock(nn.Module):
         self.res_conv = conv(dim_in, dim_out, 1) if dim_in != dim_out else None
 
     def forward(self, x: torch.Tensor, t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = F.silu(self.norm1(self.conv1(x)))
-        if t_emb is not None:
-            h = h + self.time_mlp(F.silu(t_emb))[:, :, None, None]
-        h = F.silu(self.norm2(self.conv2(h)))
-        return h + (x if self.res_conv is None else self.res_conv(x))
+        with span("unet.block"):
+            h = F.silu(self.norm1(self.conv1(x)))
+            if t_emb is not None:
+                h = h + self.time_mlp(F.silu(t_emb))[:, :, None, None]
+            h = F.silu(self.norm2(self.conv2(h)))
+            return h + (x if self.res_conv is None else self.res_conv(x))
 
 
 def _heads(qkv: torch.Tensor):
@@ -154,6 +171,8 @@ class Attention(nn.Module):
         self.to_out = conv(HEADS * DIM_HEAD, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        global attn_rows
+        attn_rows += x.shape[0]
         q, k, v = _heads(self.to_qkv(x))
         sim = torch.einsum("bhid,bhjd->bhij", q * DIM_HEAD ** -0.5, k)
         out = torch.einsum("bhij,bhjd->bhid", sim.softmax(dim=-1), v)
@@ -180,15 +199,17 @@ class LinearAttention(nn.Module):
 
 
 class PreNormResidual(nn.Module):
-    """x + fn(GroupNorm(x))."""
+    """x + fn(GroupNorm(x)), in the span of its attention's kind."""
 
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
         self.norm1 = group_norm(dim)
         self.fn = fn
+        self.span_name = "unet.attn" if isinstance(fn, Attention) else "unet.linear_attn"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.fn(self.norm1(x))
+        with span(self.span_name):
+            return x + self.fn(self.norm1(x))
 
 
 def _levels(dim: int, dim_mults) -> Tuple[int, list]:
@@ -245,12 +266,14 @@ class UnetNet(nn.Module):
             x = m[f"down_{i}_attn"](x)
             skips.append(x)
             if i < self.n_levels - 1:
-                x = m[f"down_{i}_ds"](x)
+                with span("unet.resample"):
+                    x = m[f"down_{i}_ds"](x)
         x = self.mid_block2(self.mid_attn(self.mid_block1(x, t_emb)), t_emb)
         for i in range(self.n_levels - 1):
             x = m[f"up_{i}_block1"](torch.cat([x, skips.pop()], dim=1), t_emb)
             x = m[f"up_{i}_attn"](m[f"up_{i}_block2"](x, t_emb))
-            x = m[f"up_{i}_us"](x)
+            with span("unet.resample"):
+                x = m[f"up_{i}_us"](x)
         return self.final_conv(self.final_block(x, t_emb))[:, 0]
 
 
@@ -284,12 +307,13 @@ class SpecConvNextBlock(nn.Module):
         return m[f"{prefix}conv2"](m[f"{prefix}norm2"](gelu(z)))
 
     def forward(self, x, spec, t_emb=None):
-        h = self.ds_conv(x)
-        spec_h = self.spec_ds_conv(spec)
-        if t_emb is not None:
-            h = h + spec_h + self.time_mlp(gelu(t_emb))[:, :, None, None]
-        res = x if self.res_conv is None else self.res_conv(x)
-        return self._net(h, "net_") + res, self._net(spec_h, "spec_net_")
+        with span("unet.block"):
+            h = self.ds_conv(x)
+            spec_h = self.spec_ds_conv(spec)
+            if t_emb is not None:
+                h = h + spec_h + self.time_mlp(gelu(t_emb))[:, :, None, None]
+            res = x if self.res_conv is None else self.res_conv(x)
+            return self._net(h, "net_") + res, self._net(spec_h, "spec_net_")
 
 
 class SpecUnetNet(nn.Module):
@@ -350,7 +374,8 @@ class SpecUnetNet(nn.Module):
             x = m[f"down_{i}_attn"](x)
             skips.append((x, spec))
             if i < self.n_levels - 1:
-                x, spec = m[f"down_{i}_ds"](x), m[f"down_{i}_spec_ds"](spec)
+                with span("unet.resample"):
+                    x, spec = m[f"down_{i}_ds"](x), m[f"down_{i}_spec_ds"](spec)
         x, spec = self.mid_block1(x, spec, t_emb)
         x, spec = self.mid_block2(self.mid_attn(x), spec, t_emb)
         for i in range(self.n_levels - 1):
@@ -358,6 +383,7 @@ class SpecUnetNet(nn.Module):
             x, spec = m[f"up_{i}_block1"](torch.cat([x, x_skip, spec_skip], dim=1), spec, t_emb)
             x, spec = m[f"up_{i}_block2"](x, spec, t_emb)
             x = m[f"up_{i}_attn"](x)
-            x, spec = m[f"up_{i}_us"](x), m[f"up_{i}_spec_us"](spec)
+            with span("unet.resample"):
+                x, spec = m[f"up_{i}_us"](x), m[f"up_{i}_spec_us"](spec)
         x, _ = self.final_block(x, spec, t_emb)
         return self.final_conv(x)[:, 0]

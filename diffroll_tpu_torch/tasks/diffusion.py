@@ -17,8 +17,9 @@ both routes run their plain PyTorch versions.
 
 The model families the kernels do not cover (`supports_fused` is false:
 trainable conditioning, the 2-D net, the U-Nets) take the `nn.Module` path
-in both, as the JAX package takes XLA; a U-Net, which has no separable
-conditioner projection, runs the conditioned forward every step.
+in both, as the JAX package takes XLA. A U-Net runs its whole conditioned
+forward every step, SpecUnet's spectrogram stream included, although that
+stream reads neither x nor t and so could be computed once a window.
 
 With a data axis (`mesh`, parallel/mesh.py) the task's draws are the
 global batch's, striped: `loss_fn` draws t, noise and the dropout mask for

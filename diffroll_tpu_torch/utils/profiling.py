@@ -35,6 +35,11 @@ same clock as the card's kernels and copies:
   serve.wait            the completion thread: the batch's event
   serve.copy_out        the batch's rolls to the host
   serve.deliver         the rolls handed to their requests
+  unet.block            nn/unet.py, a U-Net block's forward (a SpecUnet
+                        block's two streams together)
+  unet.linear_attn      a linear attention with its norm and residual
+  unet.attn             the bottleneck's full attention, likewise
+  unet.resample         a level's down- or up-samplers
 
 A profile records only the threads it was started on unless it is started
 with `profile_all_threads` (`torch._C._profiler._ExperimentalConfig`), so
