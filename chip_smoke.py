@@ -258,18 +258,34 @@ exits non-zero):
                 neither the taps nor the epilogues, and the port never calls
                 it); and the backward's four products alone (`dg`, `dy`, the
                 weight gradients `dwo` and `dw`) at M = 1,280 and M = 10,240
-                with their yardsticks
+                with their yardsticks; under `group_norm`, the U-Nets'
+                GroupNorm (ops/group_norm.py) at B=16, each distinct shape of
+                SpecUnet's forward norms and of the 8-group ResNet-block
+                norms: y, dx, dgamma and dbeta against F.group_norm in f64
+                on the same inputs (max|d| / max|ref| < 1e-5, `failed` the
+                shapes over it; the phase fails on any), its forward and
+                backward beside F.group_norm's (device time, by CUDA graph
+                replay), and `slower`, the shapes where either is slower
+                than PyTorch's
 The two lines before the last are the kernel summary (JSON) and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}. Each
 kernel's `bound_ms` is the larger of its operations over the card's published
 bf16 peak and its bytes (every input read once, every output written once)
 over the published memory rate; `library_ms` is null because no single
-PyTorch call computes any of the four functions. A kernel's `launches` is
-its count on its first path, transcribe for K1 and K2, train for K3 and K4;
+PyTorch call computes any of the four TPU kernels' functions. A kernel's
+`launches` is its count on its first path, transcribe for K1 and K2, train
+for K3 and K4, spec_unet for group_norm (the U-Nets' GroupNorm,
+csrc/group_norm.cu: it replaces no TPU kernel; its `ms`, `library_ms` and
+bounds are its forward's at the largest SpecUnet norm at B=16, `_bwd` its
+backward's, `library_ms` F.group_norm's, which is also the plain version the
+CPU takes; its `max_abs_err` is the largest of y's against F.group_norm in
+f64 over every shape of phase times, `max_rel_err` the largest of y, dx,
+dgamma and dbeta);
 `launches_by_path` gives the count of each user-facing path that the script
 drives with the counters reset just before and read just after (transcribe,
 train, test, sample, serve, distill, distill_test: the students' test runs,
-baseline, trainable, v2, unet, spec_unet and bf16, each 0 of every kernel,
+baseline, trainable, v2, unet, spec_unet and bf16, each 0 of K1-K4, unet
+and spec_unet one group_norm a forward norm and the rest 0 of it,
 dp_train, dp_test and dp_distill: rank 0's counts in phase dp, mp_train and
 mp_distill: rank 0's in phase mp, serve_mesh and sp: rank 0's, sp 0 of every
 kernel; learn_fused and learn_autograd: the learning check's two routes
@@ -356,6 +372,96 @@ def bound(flops: float, nbytes: float) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# every distinct (C, H, W, groups) of SpecUnet's 63 forward norms at its
+# published widths, and the 8-group norms of UnetNet(dim=32, use_convnext=False)
+GROUP_NORM_SHAPES = [(18, 640, 88, 1), (28, 320, 44, 1), (28, 640, 88, 1), (56, 160, 22, 1),
+                     (56, 320, 44, 1), (56, 640, 88, 1), (112, 160, 22, 1), (112, 320, 44, 1),
+                     (168, 320, 44, 1), (224, 160, 22, 1), (336, 160, 22, 1), (32, 320, 44, 8),
+                     (32, 640, 88, 8), (64, 160, 22, 8), (64, 320, 44, 8), (128, 160, 22, 8)]
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Median device ms of fn() captured once in a CUDA graph and replayed
+    (warmed up on a side stream first): the launches' host cost left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps, 2)
+
+
+GN_GATE = 1e-5   # GroupNorm against F.group_norm in f64, as tests/test_torch_kernels_gpu.py
+GN_OPS = 7       # operations a value, forward or backward: f32, far below the bytes' time
+
+
+def group_norm_times(dev, batch: int = 16) -> dict:
+    """Per shape, at `batch` rows and on the same inputs: the port's
+    GroupNorm (ops/group_norm.py) held against F.group_norm in f64 (y, dx,
+    dgamma, dbeta: max|d| / max|ref|, `failed` the shapes at or over GN_GATE),
+    then its forward and backward beside F.group_norm's in f32, device ms by
+    CUDA graph replay (the backward: a graph of forward and
+    `torch.autograd.grad` less the forward's); `slower`, the shapes where
+    either pass of the port's is slower than PyTorch's; and `largest`, the
+    shape with the most values, with its bytes bounds from the run's
+    tensors. Grad is on inside, also under phase times' no_grad."""
+    from diffroll_tpu_torch.ops import group_norm as gn
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out, slower, failed, largest = {}, [], [], None
+    for c, h, w, groups in GROUP_NORM_SHAPES:
+        x = (0.5 + 2.0 * torch.randn(batch, c, h, w, device=dev, generator=gen)).requires_grad_()
+        weight = (1.0 + 0.05 * torch.randn(c, device=dev, generator=gen)).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=dev, generator=gen)).requires_grad_()
+        dy = torch.randn(batch, c, h, w, device=dev, generator=gen)
+        with torch.enable_grad():
+            y = gn.group_norm(x, groups, weight, bias, 1e-6)
+            got = (y, *torch.autograd.grad(y, (x, weight, bias), dy))
+            ref = [t.detach().double().requires_grad_() for t in (x, weight, bias)]
+            y64 = F.group_norm(ref[0], groups, ref[1], ref[2], 1e-6)
+            want = (y64, *torch.autograd.grad(y64, ref, dy.double()))
+        row = {}
+        for key, a, b in zip(("y", "dx", "dgamma", "dbeta"), got, want):
+            d = float((a.detach().double() - b.detach()).abs().max())
+            row[f"{key}_rel"] = d / float(b.detach().abs().max())
+            row[f"{key}_max_abs_err"] = d
+        del got, y, ref, y64, want
+        for key, fn in (("port", gn.group_norm), ("aten", F.group_norm)):
+            with torch.enable_grad():
+                fwd = graph_ms(lambda: fn(x, groups, weight, bias, 1e-6))
+                both = graph_ms(lambda: torch.autograd.grad(fn(x, groups, weight, bias, 1e-6),
+                                                            (x, weight, bias), dy))
+            row[f"fwd_{key}_ms"], row[f"bwd_{key}_ms"] = fwd, both - fwd
+        row["bytes_bound_ms"] = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_PER_S
+        name = f"{c}x{h}x{w}_g{groups}"
+        out[name] = row
+        if max(row[f"{k}_rel"] for k in ("y", "dx", "dgamma", "dbeta")) >= GN_GATE:
+            failed.append(name)
+        if row["fwd_port_ms"] > row["fwd_aten_ms"] or row["bwd_port_ms"] > row["bwd_aten_ms"]:
+            slower.append(name)
+        if largest is None or x.numel() > largest["values"]:
+            # forward: x, gamma, beta read, y written; backward: dy, x, gamma,
+            # mean, rstd read, dx, dgamma, dbeta written
+            stats = 2 * batch * groups * 4
+            largest = {"shape": [batch, c, h, w], "groups": groups, "name": name,
+                       "values": x.numel(),
+                       "bound": bound(GN_OPS * x.numel(), 2 * nbytes(x, weight) + nbytes(bias)
+                                      + stats),
+                       "bound_bwd": bound(GN_OPS * x.numel(), 3 * nbytes(x) + 2 * nbytes(weight)
+                                          + nbytes(bias) + stats)}
+        del x, weight, bias, dy
+    return {"batch": batch, "gate": GN_GATE, "shapes": out, "failed": failed,
+            "slower": slower, "largest": largest,
+            "max_abs_err": max(r["y_max_abs_err"] for r in out.values()),
+            "max_rel_err": max(r[f"{k}_rel"] for r in out.values()
+                               for k in ("y", "dx", "dgamma", "dbeta"))}
 
 
 def stack_flops(m: int, c: int, taps: int, mp: int, layers: int) -> float:
@@ -466,19 +572,18 @@ def run_test_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, ke
     this path's launch counts."""
     from diffroll_tpu_torch.cli import test as cli_test
 
-    gated_stack, fused_sample = kernels
-    reset_launches(gated_stack, fused_sample)
+    reset_launches(*kernels)
     t0 = time.perf_counter()
     metrics = cli_test.main([f"pretrained_path={ckpt}", f"dataset.root={data}",
                              "device=cuda", "audio_format=wav", f"trainer.output_dir={out}"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+    launches = kernel_launches(kernels)
     batches = -(-2 * TEST_RECORDINGS // SERVE_BATCH)
     if metrics["n_clips"] != TEST_RECORDINGS or not all(
             math.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f"test scored {metrics['n_clips']} recordings: {metrics}")
-    if launches != {"gated_stack": STEPS * batches, "fused_sample": batches}:
+    if launches != {"gated_stack": STEPS * batches, "fused_sample": batches, "group_norm": 0}:
         raise RuntimeError(f"test did not run K2 once per batch of {SERVE_BATCH}: {launches}")
     phase("test", seconds=seconds, batches=batches, batch_size=SERVE_BATCH,
           seconds_per_batch=seconds / batches, n_clips=metrics["n_clips"],
@@ -494,19 +599,18 @@ def run_sample_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, 
     returns this path's launch counts."""
     from diffroll_tpu_torch.cli import sample as cli_sample
 
-    gated_stack, fused_sample = kernels
-    runs, total = {}, {"gated_stack": 0, "fused_sample": 0}
+    runs, total = {}, dict.fromkeys(kernel_launches(kernels), 0)
     for mode, extra in (("inpainting_ddpm_x0", ["task.inpainting_t=[100,200]", "dataset.name=MAPS",
                                                 f"dataset.root={data}"]),
                         ("generation_ddpm_x0", [])):
-        reset_launches(gated_stack, fused_sample)
+        reset_launches(*kernels)
         t0 = time.perf_counter()
         run_dir = cli_sample.main([f"pretrained_path={ckpt}", f"task.sampling_type={mode}",
                                    "num_samples=2", "device=cuda",
                                    f"trainer.output_dir={out}", *extra])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        launches = kernel_launches(kernels)
         manifest = json.loads((run_dir / "manifest.json").read_text())
         if len(manifest) != 2:
             raise RuntimeError(f"sample {mode} wrote {len(manifest)} clips")
@@ -516,7 +620,7 @@ def run_sample_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, 
                     z["trajectory"]).all() or not (run_dir / f"{i:03d}_{m['clip']}.mid").exists():
                 raise RuntimeError(f"sample {mode}: bad clip {m}: {z['trajectory'].shape}")
         # one batch of 8 windows / noise draws: K1 once per step, K2 never
-        if launches != {"gated_stack": STEPS, "fused_sample": 0}:
+        if launches != {"gated_stack": STEPS, "fused_sample": 0, "group_norm": 0}:
             raise RuntimeError(f"sample {mode} did not take the step loop: {launches}")
         runs[mode] = {"seconds": seconds, "launches": launches,
                       "notes": [m["notes"] for m in manifest],
@@ -540,7 +644,6 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
     from diffroll_tpu_torch.cli import serve as cli_serve
     from diffroll_tpu_torch.serve import serve_forever
 
-    gated_stack, fused_sample = kernels
     argv = [f"pretrained_path={ckpt}", "device=cuda"]  # the sampling preset: w=0.5
     seconds_each = 20.0
     bodies = [wav_bytes(chord_wav(seconds_each, sr, SEED + 10 + i), sr)
@@ -554,7 +657,7 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
         t0 = time.perf_counter()
         svc, cfg, info = cli_serve.make_service(argv + extra)
         warmup_s = time.perf_counter() - t0
-        reset_launches(gated_stack, fused_sample)
+        reset_launches(*kernels)
         ready = threading.Event()
         threading.Thread(target=serve_forever, args=(svc, "127.0.0.1", 0),
                          kwargs={"info": info, "ready": ready}, daemon=True).start()
@@ -603,9 +706,11 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
             server.shutdown()
             svc.close()
         torch.cuda.synchronize()
-        launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
-        if launches["fused_sample"] != after["batches"] or launches["gated_stack"] < STEPS:
-            raise RuntimeError(f"serve did not run K2 once per batch: {launches}, {after}")
+        launches = kernel_launches(kernels)
+        if launches["fused_sample"] != after["batches"] or launches["gated_stack"] < STEPS \
+                or launches["group_norm"]:
+            raise RuntimeError(f"serve did not run K2 once per batch (and no GroupNorm "
+                               f"kernel): {launches}, {after}")
         batches = after["batches"] - stats["batches"]
         sv = cfg.serve
         return {"max_wait_ms": sv.max_wait_ms, "transfer": sv.transfer,
@@ -651,7 +756,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     from diffroll_tpu_torch.train import TrainState, make_train_step
     from diffroll_tpu_torch.train.distill import make_distill_loss
 
-    gated_stack, fused_sample, fwd_saves, bwd = kernels
+    gated_stack, fused_sample, fwd_saves, bwd, group_norm = kernels
     reset_launches(*kernels)
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -664,13 +769,12 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     print(log.getvalue(), file=sys.stderr, end="")
-    launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches,
-                "fwd_saves": fwd_saves.launches, "bwd": bwd.launches}
+    launches = kernel_launches(kernels)
     n_steps = len(DISTILL_STAGES) * DISTILL_STEPS
     # the teacher twice a step (one forward of 2B rows when guided), the
     # student's forward-with-saves and backward once
     if launches != {"gated_stack": 2 * n_steps, "fused_sample": 0, "fwd_saves": n_steps,
-                    "bwd": n_steps}:
+                    "bwd": n_steps, "group_norm": 0}:
         raise RuntimeError(f"distill did not launch K1 twice and K3, K4 once a step: "
                            f"{launches}")
     losses = [float(v) for v in re.findall(r"distill_loss (\S+)", log.getvalue())]
@@ -683,17 +787,19 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     if not all(c.exists() for c in stage_ckpts.values()):
         raise RuntimeError(f"distill wrote no stage checkpoint: {stage_ckpts}")
 
-    tests, test_launches = {}, {"gated_stack": 0, "fused_sample": 0}
+    test_kernels = (gated_stack, fused_sample, group_norm)
+    tests, test_launches = {}, dict.fromkeys(kernel_launches(test_kernels), 0)
     for n, stage_ckpt in stage_ckpts.items():
-        reset_launches(gated_stack, fused_sample)
+        reset_launches(*test_kernels)
         t0 = time.perf_counter()
         metrics = cli_test.main([f"pretrained_path={stage_ckpt}", "task.sampling_type=ddim_x0",
                                  f"task.sampling_steps={n}", "task.w=0", f"dataset.root={data}",
                                  "device=cuda", "audio_format=wav", f"trainer.output_dir={out}"])
         torch.cuda.synchronize()
-        got = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        got = kernel_launches(test_kernels)
         # one batch of 8 windows: K2 once, its n steps one stream each
-        if got != {"gated_stack": n, "fused_sample": 1} or metrics["n_clips"] != TEST_RECORDINGS \
+        if got != {"gated_stack": n, "fused_sample": 1, "group_norm": 0} \
+                or metrics["n_clips"] != TEST_RECORDINGS \
                 or not all(math.isfinite(v) for v in metrics.values()):
             raise RuntimeError(f"test on the {n}-step student: {got}, {metrics}")
         tests[f"{n}_steps"] = {"seconds": time.perf_counter() - t0, "launches": got,
@@ -893,9 +999,12 @@ def run_family(argv, data: pathlib.Path, out: pathlib.Path, kernels, then: str,
     ) / TIMED_STEPS
     if not torch.isfinite(out_x[0]).all():
         raise RuntimeError(f"{argv}: the reverse process gave non-finite values")
+    # no stack kernel; the U-Nets' norms, and only theirs, on the GroupNorm kernels
     launches = kernel_launches(kernels)
-    if any(launches.values()):
-        raise RuntimeError(f"{argv} launched a kernel: {launches}")
+    norms = launches["group_norm"]
+    if any(v for k, v in launches.items() if k != "group_norm") or \
+            (norms > 0) != (mc.variant in ("unet", "spec_unet")):
+        raise RuntimeError(f"{argv} launched {launches}")
     reading.update(reverse_batch=rows, steps=mc.timesteps, timed_steps=TIMED_STEPS,
                    sampler=task_cfg.sampling_type,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
@@ -905,7 +1014,8 @@ def run_family(argv, data: pathlib.Path, out: pathlib.Path, kernels, then: str,
 
 def run_family_phases(tmp: pathlib.Path, sr: int, kernels) -> dict:
     """The phases trainable, v2, unet and spec_unet; returns each path's
-    launch counts (all zero)."""
+    launch counts (K1-K4 zero; the U-Nets' GroupNorm kernels in unet and
+    spec_unet)."""
     import shutil
 
     # a train-only corpus (the 48 recordings): its `train` skips the post-fit
@@ -1197,6 +1307,7 @@ def dp_worker(rank: int, world: int, port: int, spec_path: str) -> int:
     from diffroll_tpu_torch.ops import _build
     from diffroll_tpu_torch.ops.gated_stack import gated_stack
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
     from diffroll_tpu_torch.parallel import setup_mesh
     from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
@@ -1205,7 +1316,7 @@ def dp_worker(rank: int, world: int, port: int, spec_path: str) -> int:
     from diffroll_tpu_torch import config as tconfig
 
     _build.library()
-    kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
     dev = torch.device("cuda")
     res = {"rank": rank}
     # K2's batch as the sharded test gives it
@@ -1500,10 +1611,11 @@ def mesh_worker(name: str, rank: int, world: int, port: int, spec_path: str) -> 
     from diffroll_tpu_torch.ops import _build
     from diffroll_tpu_torch.ops.gated_stack import gated_stack
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
 
     _build.library()
-    kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
     res = {"mp": mp_rank, "serve_mesh": serve_mesh_rank, "sp": sp_rank}[name](rank, spec, kernels)
     res["rank"] = rank
     (pathlib.Path(spec["out"]) / f"{name}_rank{rank}.json").write_text(json.dumps(res))
@@ -2288,8 +2400,8 @@ def run_paper_phase(tmp: pathlib.Path, kernels) -> dict:
                     for n, m in out["students"].items()},
           reduced="the script's smoke sizes (8 + 2 clips a tree, 2 layers, T=4, one epoch a "
                   "stage, 200 distill steps to a 2-step student) at 128 channels and 128 frames")
-    if not all(launches[fn.__name__] > 0 for fn in kernels) or \
-            launches["fwd_saves"] != launches["bwd"]:
+    if not all(launches[k] > 0 for k in ("gated_stack", "fused_sample", "fwd_saves", "bwd")) \
+            or launches["fwd_saves"] != launches["bwd"] or launches["group_norm"]:
         raise RuntimeError(f"paper: the pipeline skipped a kernel: {launches}")
     if shutil.which("g++") and not native_tier:
         raise RuntimeError("paper: the native library fell back to numpy on a host with g++")
@@ -2317,6 +2429,7 @@ def main() -> int:
     gs_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
     gt_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
+    from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import (
         fused_sample, fused_sample_ref, head_weights, sampler_tables)
     from diffroll_tpu_torch.diffusion.distill import distill_grids
@@ -2359,9 +2472,7 @@ def main() -> int:
         audio_dir.mkdir()
         sr = mc.mel.sample_rate
         write_wav(audio_dir / "chords.wav", chord_wav(30.0, sr, SEED), sr)
-        gated_stack.launches = 0
-        fused_sample.launches = 0
-        torch.cuda.synchronize()
+        reset_launches(gated_stack, fused_sample, group_norm)
         t0 = time.perf_counter()
         run_dir = cli_transcribe.main([
             f"pretrained_path={ckpt}", f"dataset.audio_path={audio_dir}",
@@ -2369,7 +2480,7 @@ def main() -> int:
             "device=cuda", f"trainer.output_dir={tmp / 'out'}"])
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
-        launches = {"gated_stack": gated_stack.launches, "fused_sample": fused_sample.launches}
+        launches = kernel_launches((gated_stack, fused_sample, group_norm))
         roll = np.load(run_dir / "000_chords.npz")["roll"]
         want_frames = math.ceil(30.0 * sr / mc.mel.hop_length)
         if roll.shape != (want_frames, mc.pitches) or not np.isfinite(roll).all():
@@ -2388,9 +2499,7 @@ def main() -> int:
         # ---- train: the CLI at full width on a corpus written here
         write_maps_corpus(tmp / "data", TRAIN_BATCH * TRAIN_STEPS, 21.0, sr, SEED)
         write_maps_corpus(tmp / "data", TEST_RECORDINGS, 21.0, sr, SEED + 1, subset="ENSTDkCl")
-        for fn in (gated_stack, fused_sample, fwd_saves, bwd):
-            fn.launches = 0
-        torch.cuda.synchronize()
+        reset_launches(gated_stack, fused_sample, fwd_saves, bwd, group_norm)
         t0 = time.perf_counter()
         state = cli_train.main([
             "spec_roll", f"dataset.root={tmp / 'data'}", "task.fused_train=true",
@@ -2399,9 +2508,7 @@ def main() -> int:
             "trainer.ema_decay=0.999", f"trainer.output_dir={tmp / 'train_out'}"])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        train_launches = {"fwd_saves": fwd_saves.launches, "bwd": bwd.launches,
-                          "gated_stack": gated_stack.launches,
-                          "fused_sample": fused_sample.launches}
+        train_launches = kernel_launches((fwd_saves, bwd, gated_stack, fused_sample, group_norm))
         run_dirs = list((tmp / "train_out").glob("*/*/train-*"))
         if len(run_dirs) != 1:
             raise RuntimeError(f"expected one train run dir, found {run_dirs}")
@@ -2466,14 +2573,14 @@ def main() -> int:
         del trained, ttask, tstate
 
         # ---- the entries that use a trained model: test, sample, serve
-        kernels = (gated_stack, fused_sample)
+        kernels = (gated_stack, fused_sample, group_norm)
         path_launches = {"transcribe": launches, "train": train_launches,
                          "test": run_test_phase(last_ckpt, tmp / "data", tmp / "test_out",
                                                 kernels),
                          "sample": run_sample_phase(last_ckpt, tmp / "data", tmp / "sample_out",
                                                     mc.frames, kernels),
                          "serve": run_serve_phase(ckpt, sr, sr / mc.mel.hop_length, kernels)}
-        all_kernels = (gated_stack, fused_sample, fwd_saves, bwd)
+        all_kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
         (path_launches["distill"], path_launches["distill_test"],
          distill_step_ms) = run_distill_phase(last_ckpt, tmp / "data", tmp / "distill_out",
                                               all_kernels)
@@ -2803,7 +2910,11 @@ def main() -> int:
         for xb, tbb, condb in ((x, tb, cond), (x16, tb16, cond16)):
             gemm[f"bwd_m{xb.shape[0] * t_len}"] = bwd_gemm_times(
                 gt_module, xb, tbb, condb, w, kw, dil)
-        phase("times", card=card, **times, gemm=gemm)
+        norm_times = group_norm_times(dev)
+        phase("times", card=card, **times, gemm=gemm, group_norm=norm_times)
+        if norm_times["failed"]:
+            raise RuntimeError(f"the GroupNorm kernels against F.group_norm in f64 at "
+                               f"{norm_times['failed']}")
 
     # ---- bounds, from this run's inputs: each input read once, each output
     # written once, against the products each function does
@@ -2831,6 +2942,8 @@ def main() -> int:
     bounds["k4"] = bound(bwd_flops(bt * t_len, c, taps, mp, L, False),
                          nbytes(xs3, a3, cond16, tb16, cot16, cot16, tb16)
                          + nbytes(kw.wcat, kw.wo) + dw_bytes)
+    bounds["group_norm"] = norm_times["largest"]["bound"]
+    bounds["group_norm_bwd"] = norm_times["largest"]["bound_bwd"]
     phase("bounds", peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
           peak_tbytes_per_s=PEAK_BYTES_PER_S / 1e12, **bounds)
 
@@ -2860,6 +2973,16 @@ def main() -> int:
     k1_row.update(max_abs_err_step_loop=loop_abs, ms_s32=times["k1_s32_ms"],
                   plain_ms_s32=times["k1_s32_plain_ms"], bound_ms_s32=bounds["k1_s32"]["bound_ms"],
                   max_abs_err_s32=k1_32_abs)
+    # the U-Nets' GroupNorm: its forward at the largest SpecUnet norm, beside
+    # F.group_norm, which is both its library call and the CPU's plain version
+    norm_shape = norm_times["shapes"][norm_times["largest"]["name"]]
+    gn_row = row("group_norm", "group_norm", "diffroll_tpu_torch/csrc/group_norm.cu", None,
+                 path_launches["spec_unet"]["group_norm"], norm_times["max_abs_err"],
+                 norm_shape["fwd_port_ms"], norm_shape["fwd_aten_ms"])
+    gn_row.update(library_ms=norm_shape["fwd_aten_ms"], shape=norm_times["largest"]["shape"],
+                  max_rel_err=norm_times["max_rel_err"], ms_bwd=norm_shape["bwd_port_ms"],
+                  library_ms_bwd=norm_shape["bwd_aten_ms"],
+                  bound_ms_bwd=bounds["group_norm_bwd"]["bound_ms"])
     print(json.dumps({"kernels": [
         k1_row,
         k2_row,
@@ -2867,6 +2990,7 @@ def main() -> int:
             train_launches["fwd_saves"], k3_abs, times["k3_ms"], times["k3_plain_ms"]),
         row("k4", "bwd", train_src, "diffroll_tpu/ops/gated_stack_train.py:388",
             train_launches["bwd"], k4_abs, times["k4_ms"], times["k4_plain_ms"]),
+        gn_row,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

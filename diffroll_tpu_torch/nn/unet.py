@@ -23,6 +23,12 @@ records, else one check), the forward's only:
   unet.attn          the bottleneck's `PreNormResidual(Attention)`
   unet.resample      every down- and up-sampler (a SpecUnet level's two
                      streams together)
+  unet.norm          every GroupNorm, inside `unet.block`, `unet.linear_attn`
+                     or `unet.attn`
+
+Every norm is a `GroupNorm`: an `nn.GroupNorm` (same arguments, `weight` and
+`bias`) whose forward runs the port's kernels on CUDA inputs
+(`ops/group_norm.py`) and `F.group_norm` on CPU ones.
 
 `attn_rows` counts the rows (sequences) through the bottleneck's full
 attention in this process.
@@ -37,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import group_norm as gn_ops
 from ..utils.profiling import span
 from .init import dense, lecun_normal
 
@@ -50,8 +57,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class GroupNorm(nn.GroupNorm):
+    """`nn.GroupNorm` whose forward takes `ops.group_norm.group_norm`: the
+    port's kernels on CUDA inputs, `F.group_norm` on CPU ones."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("unet.norm"):
+            return gn_ops.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+
+
 def group_norm(channels: int, groups: int = 1) -> nn.GroupNorm:
-    return nn.GroupNorm(groups, channels, eps=GN_EPS)
+    return GroupNorm(groups, channels, eps=GN_EPS)
 
 
 def conv(in_ch: int, out_ch: int, k: int, groups: int = 1, bias: bool = True) -> nn.Conv2d:

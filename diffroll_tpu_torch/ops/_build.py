@@ -39,6 +39,8 @@ SIGNATURES = {
     "drk_sample_run": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P],
+    "drk_group_norm_fwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    "drk_group_norm_bwd": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

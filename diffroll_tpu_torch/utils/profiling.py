@@ -40,6 +40,8 @@ same clock as the card's kernels and copies:
   unet.linear_attn      a linear attention with its norm and residual
   unet.attn             the bottleneck's full attention, likewise
   unet.resample         a level's down- or up-samplers
+  unet.norm             a U-Net GroupNorm (nn/unet.py::GroupNorm), inside
+                        `unet.block`, `unet.linear_attn` or `unet.attn`
 
 A profile records only the threads it was started on unless it is started
 with `profile_all_threads` (`torch._C._profiler._ExperimentalConfig`), so

@@ -28,6 +28,7 @@ from diffroll_tpu_torch.tasks.transcribe import transcribe_long
 tgs = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
 tgt = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
 tgg = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_grad")
+tgn = importlib.import_module("diffroll_tpu_torch.ops.group_norm")
 
 BF16_GATE = 0.05
 STEPS = 12
@@ -678,3 +679,94 @@ def test_twin_training_loss_matches_autograd(cuda_f32):
     assert abs(losses["fused"] - losses["autograd"]) < 1e-2 * abs(losses["autograd"])
     for name, g in grads["autograd"].items():
         assert _rel(grads["fused"][name], g) < BF16_GATE, name
+
+
+# ---- the U-Nets' GroupNorm (ops/group_norm.py, csrc/group_norm.cu): every
+# distinct (C, H, W) of SpecUnet's 63 forward norms (one group) and the 8-group
+# norms of UnetNet(dim=32, use_convnext=False), at the cell's batch of 16, and a
+# ragged one whose planes take the 4-byte path
+GN_SHAPES = [(18, 640, 88, 1), (28, 320, 44, 1), (28, 640, 88, 1), (56, 160, 22, 1),
+             (56, 320, 44, 1), (56, 640, 88, 1), (112, 160, 22, 1), (112, 320, 44, 1),
+             (168, 320, 44, 1), (224, 160, 22, 1), (336, 160, 22, 1), (32, 320, 44, 8),
+             (32, 640, 88, 8), (64, 160, 22, 8), (64, 320, 44, 8), (128, 160, 22, 8),
+             (24, 7, 11, 8)]
+GN_GATE = 1e-5
+
+
+def _gn_case(dev, c, h, w, b=16, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.5 + 2.0 * torch.randn(b, c, h, w, device=dev, generator=gen)
+    weight = 1.0 + 0.05 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    dy = torch.randn(b, c, h, w, device=dev, generator=gen)
+    return x, weight, bias, dy
+
+
+def _gn_grads(x, weight, bias, dy, groups, fn):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = fn(leaves[0], groups, leaves[1], leaves[2], 1e-6)
+    y.backward(dy.to(y.dtype))
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,h,w,groups", GN_SHAPES,
+                         ids=[f"{c}x{h}x{w}_g{g}" for c, h, w, g in GN_SHAPES])
+def test_group_norm_kernels_match_f64(cuda_f32, c, h, w, groups):
+    """y, dx, dgamma and dbeta through the kernels against F.group_norm in
+    f64, each within 1e-5 of the reference's largest value, and the same bits
+    on a second run."""
+    x, weight, bias, dy = _gn_case(cuda_f32, c, h, w)
+    before = tgn.group_norm.launches
+    got = _gn_grads(x, weight, bias, dy, groups, tgn.group_norm)
+    again = _gn_grads(x, weight, bias, dy, groups, tgn.group_norm)
+    want = _gn_grads(x.double(), weight.double(), bias.double(), dy, groups,
+                     torch.nn.functional.group_norm)
+    torch.cuda.synchronize()
+    assert tgn.group_norm.launches - before == 2
+    for name, out, ref, rerun in zip(("y", "dx", "dgamma", "dbeta"), got, want, again):
+        assert out.dtype == torch.float32 and _rel(out.double(), ref) < GN_GATE, name
+        assert torch.equal(out, rerun), name
+
+
+@pytest.mark.gpu
+def test_group_norm_kernels_take_a_transposed_input(cuda_f32):
+    """A transposed input and gradient go through the kernels (on a
+    contiguous copy) and match F.group_norm in f64; a call the kernels cannot
+    take raises instead of falling back."""
+    x, weight, bias, dy = _gn_case(cuda_f32, 28, 88, 320)
+    xt, dyt = x.transpose(2, 3), dy.transpose(2, 3)
+    assert not xt.is_contiguous()
+    before = tgn.group_norm.launches
+    got = _gn_grads(xt, weight, bias, dyt, 1, tgn.group_norm)
+    want = _gn_grads(xt.double(), weight.double(), bias.double(), dyt, 1,
+                     torch.nn.functional.group_norm)
+    torch.cuda.synchronize()
+    assert tgn.group_norm.launches - before == 1
+    for name, out, ref in zip(("y", "dx", "dgamma", "dbeta"), got, want):
+        assert _rel(out.double(), ref) < GN_GATE, name
+    with pytest.raises(ValueError):
+        tgn.group_norm(x.double(), 1, weight.double(), bias.double(), 1e-6)
+
+
+@pytest.mark.gpu
+def test_spec_unet_training_step_launches_every_norm(cuda_f32):
+    """One SpecUnet training step at the published B=16: all 63 forward norms
+    on the kernels, a finite loss and gradients."""
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("SpecUnet").to(dev)
+    task = DiffusionTask(tm, TaskConfig(timesteps=200))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"frame": (torch.rand(16, 640, 88, device=dev, generator=gen) < 0.08).float(),
+             "audio": 0.1 * torch.randn(16, 640 * 512, device=dev, generator=gen)}
+    state = TrainState.create(tm, 5e-5)
+    step = make_train_step(lambda b, g, train: task.loss_fn(b, g, train))
+    before = tgn.group_norm.launches
+    losses = step(state, batch, gen)
+    torch.cuda.synchronize()
+    assert tgn.group_norm.launches - before == 63
+    assert torch.isfinite(losses["diffusion_loss"])
+    assert all(torch.isfinite(p).all() for p in tm.parameters())
