@@ -243,14 +243,14 @@ exits non-zero):
  35. times      warm median times of the four kernels and their plain versions
                 (K1 also at S=32; K2 at B=1, B=2 and B=8, and on the 9- and
                 5-step students at B=8; the summary line gives B=2, and B=8
-                under `*_b8`), of a whole training step at B=16 by three
-                routes: K3 + K4, K3 + the plain backward, autograd through the
-                nn.Modules (f32; and once more with TF32 products allowed),
-                and of phase 9's distill steps; `hidden_epilogue_share`:
-                `gated_stack.hidden_epilogues` over `gated_stack.tiles` in
-                one run of K1, K1 at S=32, K3 and K2 at each batch (the share
-                of forward GEMM tiles whose epilogue ran under the other
-                consumer warpgroup's k loop);
+                under `*_b8`), of a whole training step at B=16 by two
+                routes: K3 + K4, autograd through the nn.Modules (f32; and
+                once more with TF32 products allowed), and of phase 9's
+                distill steps; `hidden_epilogue_share`: for K1, K1 at S=32,
+                K3 and K2 at each batch, the share of forward GEMM tiles
+                whose epilogue runs under the other consumer warpgroup's k
+                loop, from `pass_tiles` at the shapes they ran on this card's
+                SMs;
                 under `gemm`, the stack's two GEMM kernels alone at M = 1,280
                 and M = 2,560 rows (us per call, TFLOP/s, tiles and waves)
                 with, as a yardstick only, one bf16 `torch.matmul` of the same
@@ -2106,13 +2106,14 @@ def hold_training_kernels(twin, b: int, where: str) -> dict:
     kernels' own bf16-rounded weights: K3's skip is K1's bit for bit, skip /
     xs / a and every K4 leaf (with and without dcond) below GATE, and a
     second run gives the same bits. Returns the readings; raises on a miss."""
-    from diffroll_tpu_torch.ops.gated_stack import gated_stack, kernel_weights, stack_weights
+    from diffroll_tpu_torch.ops.fused_forward import FusedOperands
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
 
     dev = torch.device("cuda")
     dil, c, frames = twin.config.dilations(), twin.config.residual_channels, twin.config.frames
-    w = stack_weights(twin.net)
-    kw = kernel_weights(w)
+    ops = FusedOperands.of(twin.net)
+    w, kw = ops.weights, ops.kernel
     wq = kernel_rounded(w)
     n_layers = len(dil)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2322,7 +2323,8 @@ def hold_paper_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 61)
     s, dil = 2 * PAPER_BATCH, mc.dilations()
     task = DiffusionTask(twin, TaskConfig(timesteps=mc.timesteps))
-    w, _, kw, *_ = task._fused_weights()
+    ops = task.sampler_operands().operands
+    w, kw = ops.weights, ops.kernel
     wq = kernel_rounded(w)
     x = torch.randn(s, mc.frames, mc.residual_channels, device=dev, generator=gen)
     tb = 0.1 * torch.randn(len(dil), s, mc.residual_channels, device=dev, generator=gen)
@@ -2341,7 +2343,9 @@ def hold_paper_kernels() -> dict:
                                         ("k2_student", "ddim_x0", 2, 0.0)):
         task = DiffusionTask(twin, TaskConfig(timesteps=mc.timesteps, sampling_type=sampler,
                                               sampling_steps=steps, w=w_mix))
-        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        so = task.sampler_operands()
+        w, head, kw = so.operands.weights, so.operands.head, so.operands.kernel
+        tables, t_bias, stochastic = so.tables, so.t_bias, so.stochastic
         guided = bool(SAMPLER_TABLE[sampler][2])
         x_T = torch.randn(PAPER_BATCH, mc.frames, mc.pitches, device=dev, generator=gen)
         noise = (torch.randn((tables.shape[0],) + tuple(x_T.shape), device=dev, generator=gen)
@@ -2422,16 +2426,15 @@ def main() -> int:
     from diffroll_tpu_torch.compat import load_lightning
     from diffroll_tpu_torch.diffusion.loop import previous_timesteps, timestep_subsequence
     from diffroll_tpu_torch.ops import _build
-    from diffroll_tpu_torch.ops.fused_forward import _embed
-    from diffroll_tpu_torch.ops.gated_stack import (
-        gated_stack, gated_stack_ref, kernel_weights, stack_weights)
+    from diffroll_tpu_torch.ops.fused_forward import FusedOperands
+    from diffroll_tpu_torch.ops.gated_stack import gated_stack, gated_stack_ref
     from diffroll_tpu_torch.profile_gemm import bwd_gemm_times, gemm_times
     gs_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
     gt_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
     from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import (
-        fused_sample, fused_sample_ref, head_weights, sampler_tables)
+        fused_sample, fused_sample_ref, sampler_tables)
     from diffroll_tpu_torch.diffusion.distill import distill_grids
     from diffroll_tpu_torch.diffusion.samplers import SAMPLER_TABLE
     from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
@@ -2598,14 +2601,13 @@ def main() -> int:
 
     net = model.net
     dil = mc.dilations()
-    w = stack_weights(net)
-    kw = kernel_weights(w)
+    ops = FusedOperands.of(net)
+    w, kw, head = ops.weights, ops.kernel, ops.head
     # the plain versions are gated on the kernels' own weight values (the
     # stack weights rounded to bf16, as the kernels receive them), so the
     # gate measures the kernels' arithmetic; the f32-weight numbers are
     # reported beside them
     wq = kernel_rounded(w)
-    head = head_weights(net)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     with torch.no_grad():
@@ -2636,8 +2638,7 @@ def main() -> int:
             ts = timestep_subsequence(mc.timesteps, steps)
             tables = torch.from_numpy(sampler_tables(task.schedule, sampling_type, ts,
                                                      previous_timesteps(ts))).to(dev)
-            t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev), net.diffusion_embedding)
-            t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
+            t_bias = ops.step_biases(net, ts)
             stochastic = bool((tables[:, 2] != 0).any())
             generation = sampling_type.startswith("generation")
             guided = SAMPLER_TABLE[sampling_type][2]
@@ -2854,7 +2855,6 @@ def main() -> int:
         return time_ms(lambda: step(st, batch16, None), 5, 2)
 
     step_times = {"step_k3_k4_ms": step_ms("cuda", True),
-                  "step_k3_plain_bwd_ms": step_ms("cuda_fwd", True),
                   "step_autograd_ms": step_ms(None, False)}
     # the same autograd step with TF32 products allowed, as a user who does not
     # ask for full f32 would run it; every other phase keeps TF32 off
@@ -2882,18 +2882,17 @@ def main() -> int:
             times[f"k2_student{n}_b8_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 5)
             times[f"k2_student{n}_b8_plain_ms"] = time_ms(lambda: fused_sample_ref(*args), 1, 0)
 
-        def hidden_share(fn):
-            """gated_stack.hidden_epilogues over gated_stack.tiles in one run of fn."""
-            before = (gated_stack.tiles, gated_stack.hidden_epilogues)
-            fn()
-            return (gated_stack.hidden_epilogues - before[1]) / (gated_stack.tiles - before[0])
+        def hidden_share(seqs):
+            """Forward GEMM tiles whose epilogue runs under the other warpgroup's
+            k loop, over all of a pass's, at `seqs` sequences of the window."""
+            tiles, hidden = gs_module.pass_tiles(seqs, t_len, c, mc.residual_layers, sms)
+            return hidden / tiles
 
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         times["hidden_epilogue_share"] = {
-            "k1": hidden_share(lambda: gated_stack(x, tb, cond, w, dil, kweights=kw)),
-            "k1_s32": hidden_share(lambda: gated_stack(x32, tb32, cond32, w, dil, kweights=kw)),
-            "k3": hidden_share(lambda: fwd_saves(x16, tb16, cond16, w, dil, kweights=kw)),
-            **{f"k2_b{bk}": hidden_share(lambda: fused_sample(*args, kweights=kw))
-               for bk, args in k2_args.items()}}
+            "k1": hidden_share(x.shape[0]), "k1_s32": hidden_share(x32.shape[0]),
+            "k3": hidden_share(x16.shape[0]),
+            **{f"k2_b{bk}": hidden_share(bk * (1 + args[8])) for bk, args in k2_args.items()}}
         for bk, args in k2_args.items():
             times[f"k2_b{bk}_ms"] = time_ms(lambda: fused_sample(*args, kweights=kw), 3)
             # the plain process at B=8 takes seconds: one unwarmed run

@@ -584,12 +584,6 @@ cudaError_t plan_stack(const StackArgs& a, StackPlan* p) {
   return e;
 }
 
-void count_tiles(const StackPlan& p, int passes, int* out) {
-  const int gemms = passes * p.a.L * ((p.a.parts & 1) + ((p.a.parts >> 1) & 1));
-  out[0] = gemms * p.ntiles;
-  out[1] = gemms * (p.ntiles - p.grid);  // every tile of a block's walk but its last
-}
-
 namespace {
 
 template <class G>
@@ -659,12 +653,10 @@ cudaError_t run_stack(const StackPlan& p, const float* tb, const int* step, int 
   return cudaGetLastError();
 }
 
-cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream, int* tiles) {
+cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream) {
   StackPlan plan;
-  cudaError_t e = plan_stack(a, &plan);
-  if (e == cudaSuccess) e = run_stack(plan, a.tb, nullptr, 0, stream);
-  if (e == cudaSuccess && tiles) count_tiles(plan, 1, tiles);
-  return e;
+  const cudaError_t e = plan_stack(a, &plan);
+  return e == cudaSuccess ? run_stack(plan, a.tb, nullptr, 0, stream) : e;
 }
 
 }  // namespace drk
@@ -674,16 +666,13 @@ extern "C" {
 const char* drk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // K1 entry: one pass of the stack. Pointers are device pointers except
-// `dil` (a host int[L]) and `tiles` (a host int[2] that receives the pass's
-// output tiles over its GEMM launches and, of those, the tiles whose epilogue
-// ran under the other consumer warpgroup's k loop); see drk::StackArgs for
-// shapes. `parts` is 3; 1 and 2 launch the gate or the output GEMMs alone (for
-// timing: the result is void).
+// `dil` (a host int[L]); see drk::StackArgs for shapes. `parts` is 3; 1 and 2
+// launch the gate or the output GEMMs alone (for timing: the result is void).
 int drk_gated_stack(void* x, void* skip, void* g, void* y, const void* tb, int tb_ls, int tb_bs,
                     const void* cond, int mp, const void* wcat, int w_rows,
                     const void* colbias, const void* rowbias, const void* wo,
                     const void* bo, const void* dil, int L, int M, int T, int C, int taps,
-                    int parts, void* stream, void* tiles) {
+                    int parts, void* stream) {
   drk::StackArgs a;
   a.x = static_cast<drk::bf16*>(x);
   a.skip = static_cast<float*>(skip);
@@ -707,7 +696,7 @@ int drk_gated_stack(void* x, void* skip, void* g, void* y, const void* tb, int t
   a.C = C;
   a.taps = taps;
   a.parts = parts;
-  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream), static_cast<int*>(tiles));
+  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

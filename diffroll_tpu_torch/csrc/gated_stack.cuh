@@ -221,10 +221,6 @@ struct StackPlan {
   bool ping_pong;  // the GEMMs' schedule: ping-pong where a block gets two tiles or more
 };
 cudaError_t plan_stack(const StackArgs& a, StackPlan* plan);
-// out[0]: the output tiles of `passes` runs of the plan over their GEMM
-// launches; out[1]: of those, the tiles whose epilogue ran under the other
-// consumer warpgroup's k loop (a block's every tile but its last).
-void count_tiles(const StackPlan& plan, int passes, int* out);
 // Launches 1 + 2L kernels on `stream` with the time bias `tb` (in place of
 // plan.a.tb) or, with the device counter `step` set, tb + *step * tb_ss, read
 // when the kernels run: a captured pass can then be replayed for step after
@@ -238,9 +234,8 @@ cudaError_t run_stack(const StackPlan& plan, const float* tb, const int* step, i
 cudaError_t make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
                      uint64_t stride1, uint64_t stride2, uint32_t box_rows);
 
-// plan_stack + run_stack, and count_tiles of the pass into `tiles` (host
-// int[2]) unless it is null. With the saves unset this is K1 as it always
-// was: the saves add stores, no arithmetic.
-cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream, int* tiles);
+// plan_stack + run_stack. With the saves unset this is K1 as it always was:
+// the saves add stores, no arithmetic.
+cudaError_t launch_stack(const StackArgs& a, cudaStream_t stream);
 
 }  // namespace drk

@@ -662,13 +662,12 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // K3 entry: K1's pass that also saves xs (L, M, C; xs[0] is the input, set by
-// the caller) and a (L, M, 2C). `x` is an (M, C) scratch here; `tiles` is
-// drk_gated_stack's.
+// the caller) and a (L, M, 2C). `x` is an (M, C) scratch here.
 int drk_gated_stack_fwd_saves(void* x, void* skip, void* g, void* y, const void* tb, int tb_ls,
                               int tb_bs, const void* cond, int mp, const void* wcat,
                               int w_rows, const void* colbias, const void* wo, const void* bo,
                               const void* dil, int L, int M, int T, int C, int taps, void* xs,
-                              void* a_save, void* stream, void* tiles) {
+                              void* a_save, void* stream) {
   if (!xs || !a_save) return (int)cudaErrorInvalidValue;
   drk::StackArgs a;
   a.x = static_cast<drk::bf16*>(x);
@@ -694,7 +693,7 @@ int drk_gated_stack_fwd_saves(void* x, void* skip, void* g, void* y, const void*
   a.taps = taps;
   a.xs = static_cast<drk::bf16*>(xs);
   a.a_save = static_cast<drk::bf16*>(a_save);
-  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream), static_cast<int*>(tiles));
+  return (int)drk::launch_stack(a, static_cast<cudaStream_t>(stream));
 }
 
 // K4 entry: the whole backward sweep. See drk::BwdArgs for shapes; `dil` is a

@@ -373,16 +373,13 @@ int drk_cond_proj(const void* cond, int mp, const void* wcat, int w_rows, int k_
 // bias for every row; tables (n, 3); noise (n, R, P) or null; xbuf (S R, C),
 // g, y bf16 and skip, hidden f32 are (S R, C) scratch. The stack's other
 // arguments are drk_gated_stack's. `dil` is a host int[L]; `step` a device
-// int, the step counter; `passes` (host) receives the number of stack passes
-// launched and `tiles` (a host int[2]) their output tiles and hidden
-// epilogues, as drk_gated_stack's.
+// int, the step counter.
 int drk_sample_run(void* x, const void* noise, const void* tables, int n, const void* tb,
                    const void* win, const void* bin, const void* wskip, const void* bskip,
                    const void* wout, const void* bout, float wg, void* xbuf, void* skip, void* g,
                    void* y, void* hidden, const void* wcat, int w_rows, const void* colbias,
                    const void* rowbias, const void* wo, const void* bo, const void* dil, int L,
-                   int R, int T, int P, int C, int S, int taps, void* step, void* stream,
-                   void* passes, void* tiles) {
+                   int R, int T, int P, int C, int S, int taps, void* step, void* stream) {
   if (C % 64 || P % 4 || P / 4 * drk::OUT_KSPLIT > drk::HEAD_THREADS || (S != 1 && S != 2) || n < 0)
     return (int)cudaErrorInvalidValue;
   drk::StackArgs a;
@@ -408,7 +405,7 @@ int drk_sample_run(void* x, const void* noise, const void* tables, int n, const 
   a.C = C;
   a.taps = taps;
   drk::StackPlan plan;
-  cudaError_t e = drk::plan_stack(a, &plan);
+  const cudaError_t e = drk::plan_stack(a, &plan);
   if (e != cudaSuccess) return (int)e;
   drk::HeadArgs h;
   h.x = static_cast<float*>(x);
@@ -426,12 +423,7 @@ int drk_sample_run(void* x, const void* noise, const void* tables, int n, const 
   h.P = P;
   h.wg = wg;
   auto run = S == 2 ? drk::run_process<2> : drk::run_process<1>;
-  e = run(plan, h, n, static_cast<cudaStream_t>(stream));
-  if (e == cudaSuccess) {
-    *static_cast<int*>(passes) = n;
-    drk::count_tiles(plan, n, static_cast<int*>(tiles));
-  }
-  return (int)e;
+  return (int)run(plan, h, n, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

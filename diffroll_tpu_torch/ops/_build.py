@@ -29,16 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "drk_gated_stack": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _I, _P, _P],
+                        _P, _I, _I, _I, _I, _I, _I, _P],
     "drk_gated_stack_fwd_saves": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                                  _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "drk_gated_stack_bwd": [_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P],
     "drk_cond_proj": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
     "drk_sample_run": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
-                       _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P],
+                       _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "drk_group_norm_fwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "drk_group_norm_bwd": [_P] * 11 + [_I] * 6 + [_P],
 }

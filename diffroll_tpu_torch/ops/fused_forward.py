@@ -11,14 +11,15 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..nn.embedding import lookup
 from ..nn.resblock import pointwise
-from ..parallel.model_axis import column
+from ..parallel.model_axis import column, full_view
 from .gated_stack import (
-    COND_PAD, GatedStackWeights, KernelWeights, gated_stack, kernel_weights, stack_weights)
+    GatedStackWeights, KernelWeights, gated_stack, kernel_weights, stack_weights)
 from .gated_stack_grad import gated_stack_trainable
 
 
@@ -58,9 +59,40 @@ def _embed(t: torch.Tensor, emb) -> torch.Tensor:
     return F.silu(column(emb.projection2, e, F.linear, -1))
 
 
-def time_bias(t_emb: torch.Tensor, w: GatedStackWeights) -> torch.Tensor:
-    """Every layer's FiLM bias in one einsum: (N, E) -> (L, N, C)."""
-    return torch.einsum("ne,lec->lnc", t_emb, w.wt) + w.bt[:, None, :]
+class FusedOperands(NamedTuple):
+    """A `DiffRollNet`'s weights as the fused inference routes read them:
+    the stacked f32 weights with the diffusion projections `wt`/`bt`, the
+    head's matrices, and the kernels' bf16 operands (None off the card).
+    Built by `of` from the whole weights; they go stale when the weights
+    change, and the holder rebuilds them."""
+
+    weights: GatedStackWeights
+    head: HeadWeights
+    kernel: Optional[KernelWeights]
+
+    @classmethod
+    def of(cls, net) -> "FusedOperands":
+        """The operands of `net` as it is now: its whole weights (gathered
+        under a model axis), read without autograd."""
+        with torch.no_grad(), full_view(net):
+            layers = list(net.residual_layers)
+            w = stack_weights(net)._replace(
+                wt=torch.stack([l.diffusion_projection.weight.t() for l in layers]),
+                bt=torch.stack([l.diffusion_projection.bias for l in layers]))
+            return cls(w, head_weights(net), kernel_weights(w) if w.wd.is_cuda else None)
+
+    def time_bias(self, t_emb: torch.Tensor) -> torch.Tensor:
+        """Every layer's FiLM bias in one einsum: (N, E) -> (L, N, C)."""
+        return torch.einsum("ne,lec->lnc", t_emb, self.weights.wt) + self.weights.bt[:, None, :]
+
+    def step_biases(self, net, ts: np.ndarray) -> torch.Tensor:
+        """The FiLM biases of a reverse process's steps `ts`, (n, L, C), as
+        the whole-process sampler reads them."""
+        w = self.weights
+        with torch.no_grad(), full_view(net):
+            t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(w.wd.device),
+                           net.diffusion_embedding)                          # (n, E)
+            return torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
 
 
 def head_stack(x_t, t_bias, cond, w: GatedStackWeights, head: HeadWeights,
@@ -72,29 +104,6 @@ def head_stack(x_t, t_bias, cond, w: GatedStackWeights, head: HeadWeights,
     return torch.relu(skip @ head.wskip + head.bskip) @ head.wout + head.bout
 
 
-def train_stack_weights(net, conditional: bool, cond_pad: int = COND_PAD) -> GatedStackWeights:
-    """`stack_weights` under autograd: the layers' parameters stacked with
-    `torch.stack` (its backward is one copy per layer), so the gradients
-    arrive on the `nn.Module` parameters in their reference layouts (Conv1d
-    (O, I, K), Linear (O, I)). The conditioner rows are zero-padded to
-    `cond_pad` with `F.pad`, whose backward drops the padding rows again."""
-    layers = list(net.residual_layers)
-
-    def stack(fn):
-        return torch.stack([fn(l) for l in layers])
-
-    wc = bc = None
-    if conditional:
-        wc = stack(lambda l: l.conditioner_projection.weight[:, :, 0].t())
-        wc = F.pad(wc, (0, 0, 0, max(cond_pad - wc.shape[1], 0)))
-        bc = stack(lambda l: l.conditioner_projection.bias)
-    return GatedStackWeights(
-        wd=stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0)), wc=wc,
-        wo=stack(lambda l: l.output_projection.weight[:, :, 0].t()),
-        b=stack(lambda l: l.dilated_conv.bias), bc=bc,
-        bo=stack(lambda l: l.output_projection.bias), wt=None, bt=None)
-
-
 def fused_forward(
     net,
     x_t: torch.Tensor,
@@ -102,38 +111,33 @@ def fused_forward(
     cond: Optional[torch.Tensor],
     *,
     dilations: Sequence[int],
-    weights: Optional[GatedStackWeights] = None,
-    kweights: Optional[KernelWeights] = None,
-    head: Optional[HeadWeights] = None,
+    operands: Optional[FusedOperands] = None,
     trainable: Optional[str] = None,
     need_dcond: bool = True,
 ) -> torch.Tensor:
     """x_t (B, T, 88), t (B,), cond (B, T, M) already substituted (-1 rows
     for unconditional CFG branches) or None -> (B, T, 88).
 
-    Pass `weights`, `kweights` (needed on CUDA) and `head` to reuse them
-    across sampler steps; without `weights` all three are prepared from
-    `net` for this one call.
+    Pass `operands` (`FusedOperands.of(net)`) to reuse them across sampler
+    steps; without them they are prepared from `net` for this one call.
 
-    `trainable=` an impl of `gated_stack_grad` ('plain', 'cuda', 'cuda_fwd')
-    is the training route: everything reads the module's parameters under
-    autograd, the per-layer FiLM biases and the heads in plain PyTorch, the
-    stack through `GatedStackFn`.
+    `trainable=` an impl of `gated_stack_grad` ('plain', 'cuda') is the
+    training route: everything reads the module's parameters under autograd,
+    the per-layer FiLM biases and the heads in plain PyTorch, the stack
+    through `GatedStackFn`.
     """
     if trainable is not None:
         x = torch.relu(pointwise(x_t, net.input_projection))
         t_emb = _embed(t, net.diffusion_embedding)
         layers = list(net.residual_layers)
-        conditional = hasattr(layers[0], "conditioner_projection") and cond is not None
         t_bias = torch.stack([l.diffusion_projection(t_emb) for l in layers])  # (L, B, C)
-        w = train_stack_weights(net, conditional)
-        skip = gated_stack_trainable(x, t_bias, cond if conditional else None, w,
+        w = stack_weights(net)
+        if cond is None:
+            w = w._replace(wc=None, bc=None)
+        skip = gated_stack_trainable(x, t_bias, cond if w.wc is not None else None, w,
                                      dilations, trainable, need_dcond)
         return pointwise(torch.relu(pointwise(skip, net.skip_projection)),
                          net.output_projection)
-    if weights is None:
-        weights = stack_weights(net)
-        kweights = kernel_weights(weights) if x_t.is_cuda else None
-    h = head_weights(net) if head is None else head
-    t_bias = time_bias(_embed(t, net.diffusion_embedding), weights)
-    return head_stack(x_t, t_bias, cond, weights, h, dilations, kweights=kweights)
+    ops = FusedOperands.of(net) if operands is None else operands
+    t_bias = ops.time_bias(_embed(t, net.diffusion_embedding))
+    return head_stack(x_t, t_bias, cond, ops.weights, ops.head, dilations, kweights=ops.kernel)

@@ -18,8 +18,10 @@ The kernel's tile list is laid out here as the kernel walks it
 sequence x one pair of BN-column slices (n, C + n). `ping_pong_walk` deals a
 GEMM launch's tiles to its blocks' two consumer warpgroups as the ping-pong
 schedule does, and `hidden_epilogues` counts the tiles whose epilogue runs
-under the other warpgroup's k loop; `gated_stack.tiles` and
-`gated_stack.hidden_epilogues` add up the C entries' own counts of the same.
+under the other warpgroup's k loop (`pass_tiles`: a whole pass's).
+
+`kernel_preamble` is what every kernel wrapper (`gated_stack`, `fwd_saves`,
+`bwd`, `fused_sample`) checks and prepares before its C entry.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class GatedStackWeights(NamedTuple):
 
     wd (L, k, C, 2C) taps (tap j = time offset (j - k//2) * d); wc (L, M, 2C)
     conditioner 1x1 conv with M zero-padded to 256, or None; wo (L, C, 2C);
-    b, bc, bo (L, 2C); wt (L, E, C) and bt (L, C) the diffusion projections.
+    b, bc, bo (L, 2C); wt (L, E, C) and bt (L, C) the diffusion projections,
+    or None where only the stack reads the weights.
     """
 
     wd: torch.Tensor
@@ -59,31 +62,32 @@ class GatedStackWeights(NamedTuple):
     b: torch.Tensor
     bc: Optional[torch.Tensor]
     bo: torch.Tensor
-    wt: torch.Tensor
-    bt: torch.Tensor
+    wt: Optional[torch.Tensor]
+    bt: Optional[torch.Tensor]
 
 
-def stack_weights(net, cond_pad: int = COND_PAD) -> GatedStackWeights:
+def stack_weights(net) -> GatedStackWeights:
     """Stack a `DiffRollNet`'s residual layers (reference layouts: Conv1d
-    (O, I, K), Linear (O, I)) into the stack's layouts."""
+    (O, I, K), Linear (O, I)) into the stack's layouts, under autograd:
+    `torch.stack`'s backward is one copy per layer and `F.pad`'s drops the
+    conditioner's padding rows again, so gradients reach the parameters in
+    their own layouts. `wt` and `bt` stay None: the prepared operands
+    (`fused_forward.FusedOperands`) fill them in."""
     layers = list(net.residual_layers)
 
     def stack(fn):
-        return torch.stack([fn(l) for l in layers]).detach()
+        return torch.stack([fn(l) for l in layers])
 
-    wd = stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0))
-    wo = stack(lambda l: l.output_projection.weight[:, :, 0].t())
     wc = bc = None
     if hasattr(layers[0], "conditioner_projection"):
         wc = stack(lambda l: l.conditioner_projection.weight[:, :, 0].t())
-        wc = F.pad(wc, (0, 0, 0, max(cond_pad - wc.shape[1], 0)))
+        wc = F.pad(wc, (0, 0, 0, max(COND_PAD - wc.shape[1], 0)))
         bc = stack(lambda l: l.conditioner_projection.bias)
     return GatedStackWeights(
-        wd=wd.contiguous(), wc=None if wc is None else wc.contiguous(),
-        wo=wo.contiguous(), b=stack(lambda l: l.dilated_conv.bias), bc=bc,
-        bo=stack(lambda l: l.output_projection.bias),
-        wt=stack(lambda l: l.diffusion_projection.weight.t()).contiguous(),
-        bt=stack(lambda l: l.diffusion_projection.bias))
+        wd=stack(lambda l: l.dilated_conv.weight.permute(2, 1, 0)), wc=wc,
+        wo=stack(lambda l: l.output_projection.weight[:, :, 0].t()),
+        b=stack(lambda l: l.dilated_conv.bias), bc=bc,
+        bo=stack(lambda l: l.output_projection.bias), wt=None, bt=None)
 
 
 def pad_cond(cond: torch.Tensor, width: int) -> torch.Tensor:
@@ -225,43 +229,38 @@ def hidden_epilogues(ntiles: int, grid: int) -> int:
 def pass_tiles(seqs: int, t_len: int, c: int, n_layers: int,
                sms: int = SMS) -> Tuple[int, int]:
     """(tiles, hidden epilogues) of one stack pass, 2L GEMM launches on
-    min(tiles, sms) persistent blocks: what the C entries count."""
+    min(tiles, sms) persistent blocks."""
     tiles, _ = tile_waves(seqs, t_len, c)
     return 2 * n_layers * tiles, 2 * n_layers * hidden_epilogues(tiles, min(tiles, sms))
 
 
-def count_tiles(counts) -> None:
-    """Add a C entry's (tiles, hidden epilogues) to the wrapper's counters."""
-    gated_stack.tiles += counts[0]
-    gated_stack.hidden_epilogues += counts[1]
-
-
-def launch_stack(x16, skip, scratch, tb_ptr: int, tb_ls: int, tb_bs: int,
-                 cond_ptr: Optional[int], colbias: Optional[torch.Tensor],
-                 rowbias_ptr: Optional[int], kw: KernelWeights, dil, t_len: int) -> None:
-    """One pass of K1 over the rows of x16 (M, C), on the current stream.
-    `scratch` is a (2, M, C) bf16 buffer (the gated activations and the
-    taps' input). Callers have checked shapes; `dil` is a ctypes int array
-    of L."""
-    lib = _build.library()
-    n_layers, c = kw.wo.shape[0], kw.wo.shape[1]
-    m = x16.shape[0]
-    tiles = (ctypes.c_int * 2)()
-    rc = lib.drk_gated_stack(
-        x16.data_ptr(), skip.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        tb_ptr, tb_ls, tb_bs,
-        cond_ptr, kw.mp, kw.wcat.data_ptr(), kw.wcat.shape[1],
-        None if colbias is None else colbias.data_ptr(), rowbias_ptr,
-        kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
-        n_layers, m, t_len, c, kw.taps, PARTS,
-        torch.cuda.current_stream().cuda_stream, ctypes.addressof(tiles))
-    _build.check(rc, "gated_stack")
-    gated_stack.launches += 1
-    count_tiles(tiles)
-
-
-def dilation_array(dilations: Sequence[int]):
-    return (ctypes.c_int * len(dilations))(*[int(d) for d in dilations])
+def kernel_preamble(kw: Optional[KernelWeights], shape: Sequence[int], device,
+                    dilations: Sequence[int], t_bias: torch.Tensor, tb_shape: Sequence[int],
+                    cond: Optional[torch.Tensor]):
+    """What every kernel wrapper checks and prepares before its C entry, for
+    a stack over `shape` = (S sequences, T frames, C channels) on `device`:
+    `kw` against C, its layer count and the device; one dilation a layer;
+    t_bias as f32 at `tb_shape`; the conditioner (S, T, M) zero-padded to
+    `kw.mp` lanes in bf16, refused where the weights have no conditioner
+    rows. Returns (t_bias, conditioner or None, the dilations as a ctypes
+    int array)."""
+    if kw is None:
+        raise ValueError("the CUDA kernels take `kweights` (kernel_weights(w), the "
+                         "stack weights' bf16 operands)")
+    seqs, t_len, c = shape
+    n_layers = kw.wo.shape[0]
+    check_kernel_shapes(kw, c, n_layers, device)
+    if len(dilations) != n_layers:
+        raise ValueError(f"{len(dilations)} dilations for {n_layers} layers")
+    tb = t_bias.float().contiguous()
+    _check(tb, "t_bias", torch.float32, tb_shape, device)
+    cond16 = None
+    if cond is not None:
+        if kw.mp == 0:
+            raise ValueError("cond given to a stack without conditioner weights")
+        cond16 = pad_cond(cond, kw.mp).to(torch.bfloat16).contiguous()
+        _check(cond16, "cond", torch.bfloat16, (seqs, t_len, kw.mp), device)
+    return tb, cond16, (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
 
 
 def gated_stack(
@@ -274,42 +273,29 @@ def gated_stack(
 ) -> torch.Tensor:
     """x (B, T, C) f32 -> skip output (B, T, C) f32.
 
-    CPU tensors run `gated_stack_ref` on `w`. CUDA tensors launch the
-    kernel on `kweights`, the bf16 operands prepared once by
-    `kernel_weights(w)`, or raise.
+    CPU tensors run `gated_stack_ref` on `w`. CUDA tensors launch K1 on
+    `kweights`, the bf16 operands prepared once by `kernel_weights(w)`, or
+    raise.
     """
     if not x.is_cuda:
         return gated_stack_ref(x, t_bias, cond, w, dilations)
-    if kweights is None:
-        raise ValueError("the CUDA stack takes `kweights` (kernel_weights(w), "
-                         "prepared once per model)")
     kw = kweights
     bsz, t_len, c = x.shape
-    n_layers = kw.wo.shape[0]
-    dev = x.device
-    check_kernel_shapes(kw, c, n_layers, dev)
-    if len(dilations) != n_layers:
-        raise ValueError(f"{len(dilations)} dilations for {n_layers} layers")
+    tb, cond16, dil = kernel_preamble(kw, x.shape, x.device, dilations, t_bias,
+                                      (len(dilations), bsz, c), cond)
     m = bsz * t_len
     x16 = x.to(torch.bfloat16, copy=True).contiguous().view(m, c)  # mutated
-    tb = t_bias.float().contiguous()
-    _check(tb, "t_bias", torch.float32, (n_layers, bsz, c), dev)
-    cond_ptr = None
-    if cond is not None:
-        if kw.mp == 0:
-            raise ValueError("cond given to a stack without conditioner weights")
-        cond_p = pad_cond(cond, kw.mp).to(torch.bfloat16).contiguous()
-        cond_ptr = _check(cond_p, "cond", torch.bfloat16, (bsz, t_len, kw.mp), dev)
-    skip = torch.empty(bsz, t_len, c, device=dev, dtype=torch.float32)
-    scratch = torch.empty(2, m, c, device=dev, dtype=torch.bfloat16)
-    launch_stack(x16, skip, scratch, tb.data_ptr(), bsz * c, c, cond_ptr,
-                 kw.b_eff if cond is not None else kw.b, None, kw,
-                 dilation_array(dilations), t_len)
+    skip = torch.empty(bsz, t_len, c, device=x.device, dtype=torch.float32)
+    scratch = torch.empty(2, m, c, device=x.device, dtype=torch.bfloat16)  # gated, taps' input
+    colbias = kw.b if cond16 is None else kw.b_eff
+    _build.check(_build.library().drk_gated_stack(
+        x16.data_ptr(), skip.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+        tb.data_ptr(), bsz * c, c, None if cond16 is None else cond16.data_ptr(), kw.mp,
+        kw.wcat.data_ptr(), kw.wcat.shape[1], colbias.data_ptr(), None, kw.wo.data_ptr(),
+        kw.bo.data_ptr(), ctypes.addressof(dil), kw.wo.shape[0], m, t_len, c, kw.taps, PARTS,
+        torch.cuda.current_stream().cuda_stream), "gated_stack")
+    gated_stack.launches += 1
     return skip
 
 
-gated_stack.launches = 0  # K1 passes launched (one per call of launch_stack)
-# every forward stack pass's (K1, K2's steps, K3) output tiles over its GEMM
-# launches, and those whose epilogue ran under the other warpgroup's k loop
-gated_stack.tiles = 0
-gated_stack.hidden_epilogues = 0
+gated_stack.launches = 0  # forward stack passes launched: K1's, and K2's steps

@@ -4,12 +4,10 @@ forward-with-saves and the backward (counterpart of
 of the backward are in that module's docstring).
 
 `impl` names the route, as in the JAX package:
-  'plain'     plain forward-with-saves + plain backward (any device; the
-              semantic reference, the JAX package's 'xla')
-  'cuda'      the forward kernel + the backward kernel ('pallas')
-  'cuda_fwd'  the forward kernel + the plain backward from the kernel's bf16
-              saves ('pallas_fwd')
-The kernel routes go through the wrappers of `gated_stack_train`, which
+  'plain'  plain forward-with-saves + plain backward (any device; the
+           semantic reference, the JAX package's 'xla')
+  'cuda'   the forward kernel + the backward kernel ('pallas')
+The kernel route goes through the wrappers of `gated_stack_train`, which
 launch the kernels on CUDA tensors (or raise) and run the plain versions on
 CPU tensors. The bf16 operands are rebuilt from the weights on every
 forward call, because in training the weights change every step; the
@@ -26,10 +24,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from .gated_stack import GatedStackWeights, kernel_weights
+from .gated_stack import GatedStackWeights, KernelWeights, kernel_weights
 from .gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
 
-IMPLS = ("plain", "cuda", "cuda_fwd")
+IMPLS = ("plain", "cuda")
 
 
 class GatedStackFn(torch.autograd.Function):
@@ -61,11 +59,7 @@ class GatedStackFn(torch.autograd.Function):
         w = GatedStackWeights(wd=wd, wc=wc, wo=wo, b=b, bc=bc, bo=bo, wt=None, bt=None)
         saves = (t_bias, cond, w, xs, a)
         if ctx.impl == "cuda":
-            kw = None
-            if ctx.kw_meta is not None:
-                from .gated_stack import KernelWeights
-
-                kw = KernelWeights(*kw_tensors, *ctx.kw_meta)
+            kw = None if ctx.kw_meta is None else KernelWeights(*kw_tensors, *ctx.kw_meta)
             dx, dtb, dcond, dw = bwd(ctx.dilations, saves, cot, ctx.need_dcond, kweights=kw)
         else:
             dx, dtb, dcond, dw = bwd_ref(ctx.dilations, saves, cot, ctx.need_dcond)

@@ -37,8 +37,7 @@ import torch
 
 from . import _build
 from .gated_stack import (
-    SMS, SQRT_HALF, GatedStackWeights, KernelWeights, _check, _shift, check_kernel_shapes,
-    count_tiles, dilation_array, pad_cond)
+    SMS, SQRT_HALF, GatedStackWeights, KernelWeights, _check, _shift, kernel_preamble, pad_cond)
 
 BWD_TILE = 128  # the backward's tiles are 128 x 128: C and the padded conditioner width
 WGRAD_BOX = 64  # frames per k tile of a weight-gradient product
@@ -132,27 +131,6 @@ def bwd_ref(dilations: Sequence[int], saves, cot, need_dcond: bool = True):
     return dx, stack_rev(dtb), dcond, dw
 
 
-def _cuda_operands(x, t_bias, cond, kw: Optional[KernelWeights], n_dil: int):
-    """Shared argument checks of both kernels; returns (tb, cond16 or None)."""
-    if kw is None:
-        raise ValueError("the CUDA training kernels take `kweights` (kernel_weights(w), "
-                         "rebuilt from the parameters every step)")
-    bsz, t_len, c = x.shape
-    n_layers = kw.wo.shape[0]
-    check_kernel_shapes(kw, c, n_layers, x.device)
-    if n_dil != n_layers:
-        raise ValueError(f"{n_dil} dilations for {n_layers} layers")
-    tb = t_bias.float().contiguous()
-    _check(tb, "t_bias", torch.float32, (n_layers, bsz, c), x.device)
-    cond16 = None
-    if cond is not None:
-        if kw.mp == 0:
-            raise ValueError("cond given to a stack without conditioner weights")
-        cond16 = pad_cond(cond, kw.mp).to(torch.bfloat16).contiguous()
-        _check(cond16, "cond", torch.bfloat16, (bsz, t_len, kw.mp), x.device)
-    return tb, cond16
-
-
 def fwd_saves(x, t_bias, cond, w: GatedStackWeights, dilations: Sequence[int],
               kweights: Optional[KernelWeights] = None):
     """x (B, T, C) -> (skip (B, T, C) f32, xs (L, B, T, C), a (L, B, T, 2C)).
@@ -163,8 +141,9 @@ def fwd_saves(x, t_bias, cond, w: GatedStackWeights, dilations: Sequence[int],
     if not x.is_cuda:
         return fwd_saves_ref(x, t_bias, cond, w, dilations)
     kw = kweights
-    tb, cond16 = _cuda_operands(x, t_bias, cond, kw, len(dilations))
     bsz, t_len, c = x.shape
+    tb, cond16, dil = kernel_preamble(kw, x.shape, x.device, dilations, t_bias,
+                                      (len(dilations), bsz, c), cond)
     n_layers = kw.wo.shape[0]
     m = bsz * t_len
     dev = x.device
@@ -174,17 +153,14 @@ def fwd_saves(x, t_bias, cond, w: GatedStackWeights, dilations: Sequence[int],
     skip = torch.empty(bsz, t_len, c, device=dev, dtype=torch.float32)
     scratch = torch.empty(3, m, c, device=dev, dtype=torch.bfloat16)
     colbias = kw.b_eff if cond is not None else kw.b
-    dil = dilation_array(dilations)
-    tiles = (ctypes.c_int * 2)()
     rc = _build.library().drk_gated_stack_fwd_saves(
         scratch[0].data_ptr(), skip.data_ptr(), scratch[1].data_ptr(), scratch[2].data_ptr(),
         tb.data_ptr(), bsz * c, c, None if cond16 is None else cond16.data_ptr(), kw.mp,
         kw.wcat.data_ptr(), kw.wcat.shape[1], colbias.data_ptr(), kw.wo.data_ptr(),
-        kw.bo.data_ptr(), ctypes.addressof(dil), n_layers, m, t_len, c, kw.taps, xs.data_ptr(), a.data_ptr(),
-        torch.cuda.current_stream().cuda_stream, ctypes.addressof(tiles))
+        kw.bo.data_ptr(), ctypes.addressof(dil), n_layers, m, t_len, c, kw.taps,
+        xs.data_ptr(), a.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "gated_stack_fwd_saves")
     fwd_saves.launches += 1
-    count_tiles(tiles)
     return skip, xs.view(n_layers, bsz, t_len, c), a.view(n_layers, bsz, t_len, 2 * c)
 
 
@@ -250,8 +226,9 @@ def bwd(dilations: Sequence[int], saves, cot, need_dcond: bool = True,
     if not cot.is_cuda:
         return bwd_ref(dilations, saves, cot, need_dcond)
     kw = kweights
-    tb, cond16 = _cuda_operands(cot, t_bias, cond, kw, len(dilations))
     bsz, t_len, c = cot.shape
+    tb, cond16, dil = kernel_preamble(kw, cot.shape, cot.device, dilations, t_bias,
+                                      (len(dilations), bsz, c), cond)
     n_layers, taps = kw.wo.shape[0], kw.taps
     m, two_c, kc = bsz * t_len, 2 * c, kw.taps * c
     dev = cot.device
@@ -285,7 +262,6 @@ def bwd(dilations: Sequence[int], saves, cot, need_dcond: bool = True,
     db_part = torch.empty(n_layers, warp_rows, two_c, **f32)
     ss_part = torch.empty(n_layers, warp_rows, c, **f32)
 
-    dil = dilation_array(dilations)
     rc = _build.library().drk_gated_stack_bwd(
         xs.data_ptr(), a.data_ptr(), None if cond16 is None else cond16.data_ptr(), kw.mp,
         tb.data_ptr(), bsz * c, c, kw.wcat.data_ptr(), kw.wcat.shape[1], kw.wo.data_ptr(),

@@ -29,12 +29,9 @@ from .gated_stack import (
     GatedStackWeights,
     KernelWeights,
     _check,
-    check_kernel_shapes,
-    count_tiles,
-    dilation_array,
     gated_stack,
     gated_stack_ref,
-    pad_cond,
+    kernel_preamble,
 )
 
 __all__ = ["HeadWeights", "head_weights", "sampler_tables", "fused_sample",
@@ -158,26 +155,21 @@ def fused_sample(
     if not x_T.is_cuda:
         return fused_sample_ref(x_T, noise, t_bias, tables, w, head, cond,
                                 dilations, guided, w_guidance, stochastic)
-    if kweights is None:
-        raise ValueError("the CUDA sampler takes `kweights` (kernel_weights(w), "
-                         "prepared once per model)")
-    lib = _build.library()
+    if guided and cond is None:
+        raise ValueError("guided sampling needs a conditioner")
     kw = kweights
     dev = x_T.device
     bsz, t_len, n_out = x_T.shape
-    n_layers, c = kw.wo.shape[0], kw.wo.shape[1]
+    c = head.win.shape[1]
     n = tables.shape[0]
-    check_kernel_shapes(kw, c, n_layers, dev)
-    conditional = cond is not None and kw.mp > 0
-    if guided and not conditional:
-        raise ValueError("guided sampling needs a conditioner")
     streams = 2 if guided else 1
     rows = bsz * t_len
     m = streams * rows
+    tb, cond_p, dil = kernel_preamble(
+        kw, (streams * bsz, t_len, c), dev, dilations, t_bias, (n, len(dilations), c),
+        None if cond is None else _streams(cond, guided))
 
     x = x_T.float().contiguous().clone()  # updated in place into x_0
-    tb = t_bias.float().contiguous()
-    tb_ptr = _check(tb, "t_bias", torch.float32, (n, n_layers, c), dev)
     tab = tables.float().to(dev).contiguous()
     _check(tab, "tables", torch.float32, (n, 3), dev)
     noise_ptr = None
@@ -190,14 +182,13 @@ def fused_sample(
         _check(v, name, torch.float32, shape, dev)
     win, bin_, wskip, bskip, wout, bout = (v.data_ptr() for v in hw)
 
+    lib = _build.library()
+    n_layers = kw.wo.shape[0]
     xbuf = torch.empty(m, c, device=dev, dtype=torch.bfloat16)
     scratch = torch.empty(2, m, c, device=dev, dtype=torch.bfloat16)
     skip = torch.empty(2, m, c, device=dev, dtype=torch.float32)  # skip sums, head hidden
     stream = torch.cuda.current_stream().cuda_stream
-    if conditional:
-        cond_p = pad_cond(_streams(cond.float(), guided), kw.mp).to(torch.bfloat16)
-        cond_p = cond_p.contiguous()
-        _check(cond_p, "cond", torch.bfloat16, (streams * bsz, t_len, kw.mp), dev)
+    if cond_p is not None:
         hoisted = torch.empty(n_layers, m, 2 * c, device=dev, dtype=torch.float32)
         _build.check(lib.drk_cond_proj(
             cond_p.data_ptr(), kw.mp, kw.wcat.data_ptr(), kw.wcat.shape[1],
@@ -206,18 +197,15 @@ def fused_sample(
         rowbias_ptr, colbias_ptr = hoisted.data_ptr(), None
     else:
         rowbias_ptr, colbias_ptr = None, kw.b.data_ptr()
-    dil = dilation_array(dilations)
-    passes, tiles = ctypes.c_int(0), (ctypes.c_int * 2)()
     step = torch.empty(1, device=dev, dtype=torch.int32)  # the device's step counter
     _build.check(lib.drk_sample_run(
-        x.data_ptr(), noise_ptr, tab.data_ptr(), n, tb_ptr, win, bin_, wskip, bskip, wout,
-        bout, float(w_guidance), xbuf.data_ptr(), skip[0].data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), skip[1].data_ptr(), kw.wcat.data_ptr(), kw.wcat.shape[1],
-        colbias_ptr, rowbias_ptr, kw.wo.data_ptr(), kw.bo.data_ptr(), ctypes.addressof(dil),
-        n_layers, rows, t_len, n_out, c, streams, kw.taps, step.data_ptr(), stream,
-        ctypes.addressof(passes), ctypes.addressof(tiles)), "sample_run")
-    gated_stack.launches += passes.value
-    count_tiles(tiles)
+        x.data_ptr(), noise_ptr, tab.data_ptr(), n, tb.data_ptr(), win, bin_, wskip, bskip,
+        wout, bout, float(w_guidance), xbuf.data_ptr(), skip[0].data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), skip[1].data_ptr(), kw.wcat.data_ptr(),
+        kw.wcat.shape[1], colbias_ptr, rowbias_ptr, kw.wo.data_ptr(), kw.bo.data_ptr(),
+        ctypes.addressof(dil), n_layers, rows, t_len, n_out, c, streams, kw.taps,
+        step.data_ptr(), stream), "sample_run")
+    gated_stack.launches += n
     fused_sample.launches += 1
     return x
 

@@ -127,6 +127,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_gemm needs a CUDA card")
     from .models import build
+    from .ops.fused_forward import FusedOperands
 
     gs = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
     gt = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
@@ -137,8 +138,8 @@ def main(argv=None) -> int:
     torch.manual_seed(0)
     model = build("ClassifierFreeDiffRoll").to(dev).eval()
     mc = model.config
-    w = gs.stack_weights(model.net)
-    kw = gs.kernel_weights(w)
+    ops = FusedOperands.of(model.net)
+    w, kw = ops.weights, ops.kernel
     dil, c = mc.dilations(), mc.residual_channels
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():

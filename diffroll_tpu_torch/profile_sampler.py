@@ -21,7 +21,6 @@ import statistics
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 
@@ -82,11 +81,8 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from .diffusion.loop import previous_timesteps, timestep_subsequence
     from .models import build
-    from .ops.fused_forward import _embed, head_weights
-    from .ops.gated_stack import kernel_weights, stack_weights
-    from .ops.sampler_kernel import fused_sample, sampler_tables
+    from .ops.sampler_kernel import fused_sample
     from .tasks.diffusion import DiffusionTask, TaskConfig
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,13 +94,9 @@ def main(argv=None) -> int:
     torch.nn.init.normal_(model.net.output_projection.weight, std=0.1)
     model = model.to(dev).eval()
     mc = model.config
-    task = DiffusionTask(model, TaskConfig(timesteps=args.steps, w=0.5))
-    w = stack_weights(model.net)
-    kw = kernel_weights(w)
-    head = head_weights(model.net)
-    ts = timestep_subsequence(args.steps, None)
-    tables = torch.from_numpy(
-        sampler_tables(task.schedule, "cfdg_ddpm_x0", ts, previous_timesteps(ts))).to(dev)
+    # cfdg_ddpm_x0 at w=0.5: its tables, FiLM biases and prepared operands
+    so = DiffusionTask(model, TaskConfig(timesteps=args.steps, w=0.5)).sampler_operands()
+    ops, n_steps = so.operands, so.tables.shape[0]
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -113,16 +105,14 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()  # the profiler's one-time start-up stays out of the readings
 
     with torch.no_grad():
-        t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev), model.net.diffusion_embedding)
-        t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
         for b in args.batch:
             x_T = torch.randn(b, mc.frames, mc.pitches, device=dev, generator=gen)
-            noise = torch.randn(len(ts), b, mc.frames, mc.pitches, device=dev, generator=gen)
+            noise = torch.randn(n_steps, b, mc.frames, mc.pitches, device=dev, generator=gen)
             cond = torch.rand(b, mc.frames, mc.n_mels, device=dev, generator=gen)
 
             def run():
-                return fused_sample(x_T, noise, t_bias, tables, w, head, cond,
-                                    mc.dilations(), True, 0.5, True, kweights=kw)
+                return fused_sample(x_T, noise, so.t_bias, so.tables, ops.weights, ops.head, cond,
+                                    mc.dilations(), True, 0.5, True, kweights=ops.kernel)
 
             run()
             times = []
@@ -150,9 +140,9 @@ def main(argv=None) -> int:
                     per_kernel[e.key[:80]] = {"ms": dt / 1e3, "calls": e.count}
             device_ms = sum(v["ms"] for v in per_kernel.values())
             flop = 2 * 2 * b * mc.frames * (3 * mc.residual_channels + mc.residual_channels) \
-                * 2 * mc.residual_channels * mc.residual_layers * len(ts)
+                * 2 * mc.residual_channels * mc.residual_layers * n_steps
             print(json.dumps({
-                "card": card, "batch": b, "steps": len(ts),
+                "card": card, "batch": b, "steps": n_steps,
                 "event_ms_median": statistics.median(times), "event_ms": times,
                 "profiled_wall_ms": wall_ms, "device_ms": device_ms,
                 # the traced run's own timeline: first device op's start to the

@@ -1,6 +1,6 @@
 """Where a training step's, or a distillation step's, time goes on the card.
 
-    python -m diffroll_tpu_torch.profile_train [--batch 16] [--routes cuda cuda_fwd modules]
+    python -m diffroll_tpu_torch.profile_train [--batch 16] [--routes cuda modules]
     python -m diffroll_tpu_torch.profile_train --distill [--batch 16]
 
 Builds the full-width ClassifierFreeDiffRoll from a seeded init (zero-init
@@ -8,10 +8,9 @@ head given N(0, 0.1^2) weights) and a seeded batch, then times a whole step
 (loss, backward, Adam) with CUDA events (median of 5 after 2 warm-ups) and
 traces one more under torch.profiler. Training routes:
 
-  cuda      `task.fused_train=true`: the forward-with-saves and backward
-            kernels (K3 + K4)
-  cuda_fwd  K3 + the plain backward from K3's saves
-  modules   autograd through the nn.Modules (f32, TF32 off)
+  cuda     `task.fused_train=true`: the forward-with-saves and backward
+           kernels (K3 + K4)
+  modules  autograd through the nn.Modules (f32, TF32 off)
 
 `--distill` times one progressive-distillation step instead (the `distill`
 entry's step, train/distill.py), with the model as its own frozen teacher:
@@ -39,7 +38,7 @@ import torch
 
 from .profile_sampler import device_ops, device_timeline
 
-ROUTES = ("cuda", "cuda_fwd", "modules")
+ROUTES = ("cuda", "modules")
 # (stage, student steps, guided): the `distill` entry's first two stages from
 # distill.start_steps=9, as chip_smoke.py runs them
 DISTILL_STAGES = (("guided", 9, True), ("unguided", 5, False))

@@ -57,7 +57,8 @@ def drift(model: DiffRollModel, waveform: torch.Tensor) -> Dict[str, float]:
     w = 0.5
     cfg = TaskConfig(timesteps=mc.timesteps, sampling_type="cfdg_ddpm_x0", w=w)
     task = DiffusionTask(model, cfg)
-    wts, head, kw, tables, t_bias, stochastic = task._fused_weights()
+    so = task.sampler_operands()
+    wts, tables, t_bias = so.operands.weights, so.tables, so.t_bias
     rounded = wts._replace(**{k: getattr(wts, k).to(torch.bfloat16).float()
                               for k in ("wd", "wc", "wo")})
     dev = model.device
@@ -66,8 +67,8 @@ def drift(model: DiffRollModel, waveform: torch.Tensor) -> Dict[str, float]:
     x_T = torch.randn((bsz, mc.frames, mc.pitches), generator=gen, device=dev)
     noise = torch.randn((tables.shape[0],) + tuple(x_T.shape), generator=gen, device=dev)
     cond = task.build_conditioner(x_T, waveform)
-    rest = (head, cond, mc.dilations(), True, w, stochastic)
-    k2 = fused_sample(x_T, noise, t_bias, tables, wts, *rest, kweights=kw)
+    rest = (so.operands.head, cond, mc.dilations(), True, w, so.stochastic)
+    k2 = fused_sample(x_T, noise, t_bias, tables, wts, *rest, kweights=so.operands.kernel)
     loop = DiffusionTask(model, cfg.replace(use_megakernel=False)).sample(
         x_T, waveform=waveform, noise=noise)[0]
     ref_q = fused_sample_ref(x_T, noise, t_bias, tables, rounded, *rest)

@@ -101,7 +101,7 @@ class TranscriptionService:
     run `follow` until rank 0 broadcasts stop (`close`). A batch's
     collectives are issued by one thread on each rank, in batch order. A
     model-sharded net samples from its whole weights, gathered once
-    (`DiffusionTask._fused_weights`), or column-parallel on the modules.
+    (`DiffusionTask.sampler_operands`), or column-parallel on the modules.
     """
 
     def __init__(self, task, *, max_batch: int = 8, max_wait_ms: float = 25.0,

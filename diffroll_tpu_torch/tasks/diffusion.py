@@ -38,7 +38,7 @@ guided sampler, cfdg_ddim_x0 included, conditions on spec := -1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +49,7 @@ from ..diffusion.samplers import SAMPLER_TABLE, cfg_mix
 from ..diffusion.schedule import Schedule, linear_schedule
 from ..models.base import DiffRollModel
 from ..models.conditioning import spec_dropout_mask
-from ..ops.fused_forward import (
-    _embed,
-    fused_forward,
-    head_weights,
-    supports_fused,
-)
-from ..ops.gated_stack import kernel_weights, stack_weights
+from ..ops.fused_forward import FusedOperands, fused_forward, supports_fused
 from ..ops.sampler_kernel import fused_sample, sampler_tables
 from ..parallel.model_axis import full_view
 from ..utils.profiling import span
@@ -94,8 +88,27 @@ class TaskConfig:
         return dataclasses.replace(self, **kw)
 
 
+class SamplerOperands(NamedTuple):
+    """What the fused sampling routes read, kept on the device, so a reverse
+    process copies nothing from the host for them (such a copy from pageable
+    memory waits for the stream, and so for the batch before it): the net's
+    prepared operands, the whole-process sampler's per-step tables (n, 3),
+    its FiLM biases t_bias (n, L, C), and whether it draws noise."""
+
+    device: torch.device
+    operands: FusedOperands
+    tables: torch.Tensor
+    t_bias: torch.Tensor
+    stochastic: bool
+
+
 class DiffusionTask:
-    """Binds a model to the diffusion process; the weights live in the model."""
+    """Binds a model to the diffusion process; the weights live in the model.
+
+    The sampling routes' operands are prepared once and kept (`_fused`, see
+    `sampler_operands`): rebuilt when the net moves to another device, and
+    dropped by every `loss_fn(train=True)`, since training moves the weights.
+    """
 
     def __init__(self, model: DiffRollModel, config: TaskConfig = TaskConfig(), mesh=None):
         self.model = model
@@ -106,34 +119,22 @@ class DiffusionTask:
         if config.sampling_type not in SAMPLER_TABLE:
             raise KeyError(f"unknown sampler {config.sampling_type!r}; "
                            f"choices: {sorted(SAMPLER_TABLE)}")
-        # (device, stack weights, head weights, kernel weights, tables,
-        # t_bias, stochastic): see _fused_weights
-        self._fused = None
+        self._fused: Optional[SamplerOperands] = None
 
-    def _fused_weights(self):
-        """The operands the fused routes read, prepared once per device: the
-        stacked weights, the head's, the bf16 kernel operands (on CUDA only),
-        and the whole-process sampler's per-step tables (n, 3), FiLM biases
-        t_bias (n, L, C) and whether it draws noise. Kept on the device, so
-        a reverse process copies nothing from the host for them: such a
-        copy from pageable memory waits for the stream, and so for the
-        batch before it."""
+    def sampler_operands(self) -> SamplerOperands:
+        """The operands of the fused sampling routes for the net's weights
+        as they are, built from the whole weights on first use."""
         net = self.model.net
         dev = net.input_projection.weight.device
-        if self._fused is None or self._fused[0] != dev:
+        if self._fused is None or self._fused.device != dev:
             cfg = self.config
-            with full_view(net):   # the whole weights, gathered once
-                w = stack_weights(net)
-                head = head_weights(net)
-                ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
-                t_emb = _embed(torch.from_numpy(ts.astype(np.int64)).to(dev),
-                               net.diffusion_embedding)                          # (n, E)
-            kw = kernel_weights(w) if dev.type == "cuda" else None
+            ops = FusedOperands.of(net)
+            ts = timestep_subsequence(cfg.timesteps, cfg.sampling_steps)
             tables = sampler_tables(self.schedule, cfg.sampling_type, ts, previous_timesteps(ts))
-            t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]  # (n, L, C)
-            self._fused = (dev, w, head, kw, torch.from_numpy(tables).to(dev),
-                           t_bias, bool(np.any(tables[:, 2] != 0.0)))
-        return self._fused[1:]
+            self._fused = SamplerOperands(dev, ops, torch.from_numpy(tables).to(dev),
+                                          ops.step_biases(net, ts),
+                                          bool(np.any(tables[:, 2] != 0.0)))
+        return self._fused
 
     # ------------------------------------------------------------- training
 
@@ -192,7 +193,6 @@ class DiffusionTask:
         """
         cfg = self.config
         if train:
-            # the sampler's prepared weights go stale as training moves on
             self._fused = None
         dual = isinstance(batch, (tuple, list))
         b1 = batch[0] if dual else batch
@@ -332,11 +332,11 @@ class DiffusionTask:
             cfg.use_fused and supports_fused(mc))
 
         if fused:
-            w, head, kw = self._fused_weights()[:3]
+            ops = self.sampler_operands().operands
 
             def net(x, t_vec, c):
                 return fused_forward(model.net, x, t_vec, c, dilations=mc.dilations(),
-                                     weights=w, kweights=kw, head=head)
+                                     operands=ops)
 
             return self.make_step_fn_from_net(net, cond)
 
@@ -441,10 +441,11 @@ class DiffusionTask:
             mc = self.model.config
             _, _, guided, _ = SAMPLER_TABLE[cfg.sampling_type]
             generation = cfg.sampling_type.startswith("generation")
-            w, head, kw, tables, t_bias, stochastic = self._fused_weights()
+            so = self.sampler_operands()
+            ops = so.operands
             if cond is not None and generation:
                 cond = torch.full_like(cond, -1.0)
             return fused_sample(
-                x_T, noise if stochastic else None, t_bias, tables, w, head, cond,
-                mc.dilations(), guided=bool(guided and cond is not None),
-                w_guidance=float(cfg.w), stochastic=stochastic, kweights=kw)
+                x_T, noise if so.stochastic else None, so.t_bias, so.tables, ops.weights,
+                ops.head, cond, mc.dilations(), guided=bool(guided and cond is not None),
+                w_guidance=float(cfg.w), stochastic=so.stochastic, kweights=ops.kernel)

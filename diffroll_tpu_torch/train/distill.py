@@ -45,9 +45,7 @@ from ..diffusion.forward import q_sample
 from ..diffusion.samplers import cfg_mix
 from ..diffusion.schedule import Schedule
 from ..models.base import DiffRollModel
-from ..ops.fused_forward import fused_forward, head_weights, supports_fused
-from ..ops.gated_stack import kernel_weights, stack_weights
-from ..parallel.model_axis import full_view
+from ..ops.fused_forward import FusedOperands, fused_forward, supports_fused
 from ..tasks.diffusion import DiffusionTask, TaskConfig
 from .state import TrainState
 from .step import make_train_step
@@ -61,24 +59,20 @@ class TeacherForward:
     guidance mixed in where `guided`.
 
     With `fused` the residual stack runs through `fused_forward` on the
-    operands prepared here, once: the stacked weights, the bf16 kernel
-    operands (K1, on a CUDA model) and the head. They are the teacher's as
-    it is now; a new teacher needs a new `TeacherForward`.
+    operands prepared here, once a stage (`FusedOperands`: K1's on a CUDA
+    model). They are the teacher's as it is now; a new teacher needs a new
+    `TeacherForward`.
     """
 
     def __init__(self, model: DiffRollModel, guided: bool, w: float, fused: bool):
         self.model, self.guided, self.w, self.fused = model, guided, float(w), fused
-        if fused:
-            with full_view(model.net):   # the whole weights, gathered once a stage
-                self.weights = stack_weights(model.net)
-                self.head = head_weights(model.net)
-            self.kweights = kernel_weights(self.weights) if model.device.type == "cuda" else None
+        self.operands = FusedOperands.of(model.net) if fused else None
 
     def _net(self, x, t, cond):
         if not self.fused:
             return self.model.apply(x, t, cond, None)
         return fused_forward(self.model.net, x, t, cond, dilations=self.model.config.dilations(),
-                             weights=self.weights, kweights=self.kweights, head=self.head)
+                             operands=self.operands)
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor, cond: Optional[torch.Tensor]):

@@ -48,7 +48,7 @@ from diffroll_tpu_torch.config import DistillConfig as TDistillConfig
 from diffroll_tpu_torch.config import compose
 from diffroll_tpu_torch.diffusion import distill as tdistill
 from diffroll_tpu_torch.diffusion.schedule import Schedule
-from diffroll_tpu_torch.ops.gated_stack import stack_weights
+from diffroll_tpu_torch.ops.fused_forward import FusedOperands
 from diffroll_tpu_torch.tasks import DiffusionTask as TTask
 from diffroll_tpu_torch.tasks import TaskConfig as TTaskConfig
 from diffroll_tpu_torch.train import TrainState, make_train_step
@@ -221,7 +221,7 @@ def test_teacher_fused_route_matches_apply(pair, guided):
     cond = rng.random((B, FRAMES, 229)).astype(np.float32)
     t = np.array([99, 60, 12, 0], np.int64)
     teacher = tdistill_train.TeacherForward(tm, guided, 0.5, fused=True)
-    assert teacher.kweights is None  # no kernel operands for a CPU model
+    assert teacher.operands.kernel is None  # no kernel operands for a CPU model
     got = teacher(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(cond))
     jx, jt, jc = jnp.asarray(x), jnp.asarray(t, jnp.int32), jnp.asarray(cond)
     if guided:
@@ -402,9 +402,9 @@ def test_chain_prepares_each_teacher_from_the_last_student(pair, monkeypatch):
         tm, cfg, batches(), TDistillConfig(start_steps=9, stages=2, steps_per_stage=3, lr=1e-3))
     assert sorted(out) == [5, 9]
     assert [(m, g) for m, g, _ in prepared] == [(tm, True), (out[9], False)]
-    first, second = prepared[0][2].weights, prepared[1][2].weights
+    first, second = prepared[0][2].operands.weights, prepared[1][2].operands.weights
     assert not torch.equal(first.wd, second.wd)  # stage 1 moved the weights
-    for got, want in zip(second, stack_weights(out[9].net)):
+    for got, want in zip(second, FusedOperands.of(out[9].net).weights):
         assert torch.equal(got, want)
     alone, _ = tdistill_train.distill_stage(out[9], cfg, batches(), 5, n_steps=3, lr=1e-3)
     for p, q in zip(out[5].net.parameters(), alone.net.parameters()):

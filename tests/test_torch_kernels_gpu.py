@@ -17,10 +17,7 @@ import pytest
 import torch
 
 from diffroll_tpu_torch import models as tmodels
-from diffroll_tpu_torch.diffusion.loop import previous_timesteps, timestep_subsequence
-from diffroll_tpu_torch.ops.fused_forward import _embed
-from diffroll_tpu_torch.ops.sampler_kernel import (
-    fused_sample, fused_sample_ref, head_weights, sampler_tables)
+from diffroll_tpu_torch.ops.sampler_kernel import fused_sample, fused_sample_ref
 from diffroll_tpu_torch.tasks import DiffusionTask, TaskConfig
 from diffroll_tpu_torch.tasks.transcribe import transcribe_long
 
@@ -50,20 +47,6 @@ def _rel(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def _sms():
-    return torch.cuda.get_device_properties(0).multi_processor_count
-
-
-def _assert_tiles_counted(before, want):
-    """The C entries' (tiles, hidden epilogues) against the Python mirror."""
-    got = (tgs.gated_stack.tiles - before[0], tgs.gated_stack.hidden_epilogues - before[1])
-    assert got == want
-
-
-def _counters():
-    return tgs.gated_stack.tiles, tgs.gated_stack.hidden_epilogues
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 64, 3, True), (3, 100, 128, 4, True),
                                    (2, 64, 64, 3, False), (2, 640, 512, 15, True),
@@ -89,13 +72,12 @@ def test_stack_kernel_matches_plain(cuda_f32, shape):
     tb = 0.1 * torch.randn(layers, b, c, device=dev)
     cond = torch.rand(b, t, 229, device=dev) if with_cond else None
     dil = tm.config.dilations()
-    before, counted = tgs.gated_stack.launches, _counters()
+    before = tgs.gated_stack.launches
     with torch.no_grad():
         out = tgs.gated_stack(x, tb, cond, w, dil, kweights=tgs.kernel_weights(w))
         ref = tgs.gated_stack_ref(x, tb, cond, w, dil)
     torch.cuda.synchronize()
     assert tgs.gated_stack.launches == before + 1
-    _assert_tiles_counted(counted, tgs.pass_tiles(b, t, c, layers, _sms()))
     assert _rel(out, ref) < BF16_GATE
     with pytest.raises(ValueError, match="kweights"):  # no silent per-call rebuild
         tgs.gated_stack(x, tb, cond, w, dil)
@@ -122,14 +104,12 @@ def test_stack_kernel_same_bits_every_run(cuda_f32, shape):
     tb = 0.1 * torch.randn(layers, b, c, device=dev)
     cond = torch.rand(b, t, 229, device=dev)
     dil = tm.config.dilations()
-    counted = _counters()
     with torch.no_grad():
         first = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
         torch.randn(1 << 22, device=dev)  # other work on the stream in between
         second = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
-    _assert_tiles_counted(counted, tuple(2 * n for n in tgs.pass_tiles(b, t, c, layers, _sms())))
 
 
 def _process_case(dev, guided, frames=64, c=64, layers=3, bsz=2):
@@ -137,20 +117,14 @@ def _process_case(dev, guided, frames=64, c=64, layers=3, bsz=2):
     tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=c, residual_layers=layers,
                        frames=frames, timesteps=STEPS).to(dev)
     torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
-    task = DiffusionTask(tm, TaskConfig(timesteps=STEPS, w=0.5))
-    w = tgs.stack_weights(tm.net)
-    ts = timestep_subsequence(STEPS, None)
     name = "cfdg_ddpm_x0" if guided else "ddpm_x0"
-    tables = torch.from_numpy(sampler_tables(task.schedule, name, ts,
-                                             previous_timesteps(ts))).to(dev)
-    with torch.no_grad():
-        t_emb = _embed(torch.from_numpy(ts.astype("int64")).to(dev), tm.net.diffusion_embedding)
-        t_bias = torch.einsum("ne,lec->nlc", t_emb, w.wt) + w.bt[None]
+    so = DiffusionTask(tm, TaskConfig(timesteps=STEPS, sampling_type=name,
+                                      w=0.5)).sampler_operands()
     x_T = torch.randn(bsz, frames, 88, device=dev)
     noise = torch.randn(STEPS, bsz, frames, 88, device=dev)
     cond = torch.rand(bsz, frames, 229, device=dev)
-    return (x_T, noise, t_bias, tables, w, head_weights(tm.net), cond, tm.config.dilations(),
-            guided, 0.5)
+    return (x_T, noise, so.t_bias, so.tables, so.operands.weights, so.operands.head, cond,
+            tm.config.dilations(), guided, 0.5)
 
 
 @pytest.mark.gpu
@@ -158,9 +132,9 @@ def _process_case(dev, guided, frames=64, c=64, layers=3, bsz=2):
 @pytest.mark.parametrize("guided", [True, False], ids=["guided", "unguided"])
 def test_fused_sample_single_entry(cuda_f32, guided, stochastic):
     """`fused_sample` called directly, n=12: one call into the library runs
-    every step (12 stack passes counted by the C entry), with and without
-    noise, against the plain process on the kernels' own weight values; and
-    a second run gives the same bits."""
+    every step (12 stack passes counted), with and without noise, against
+    the plain process on the kernels' own weight values; and a second run
+    gives the same bits."""
     args = list(_process_case(cuda_f32, guided))
     if not stochastic:
         args[1] = None
@@ -254,10 +228,9 @@ def test_fwd_saves_kernel_matches_plain(cuda_f32, shape):
     output bit-for-bit against K1 (the saves add stores, no arithmetic); at
     B=16, 640 tiles on the ping-pong schedule."""
     dil, w, wq, kw, x, tb, cond, _ = _train_case(cuda_f32, shape)
-    before, counted = tgt.fwd_saves.launches, _counters()
+    before = tgt.fwd_saves.launches
     with torch.no_grad():
         skip, xs, a = tgt.fwd_saves(x, tb, cond, w, dil, kweights=kw)
-        _assert_tiles_counted(counted, tgs.pass_tiles(*shape[:3], shape[3], _sms()))
         skip_r, xs_r, a_r = tgt.fwd_saves_ref(x, tb, cond, wq, dil)
         k1 = tgs.gated_stack(x, tb, cond, w, dil, kweights=kw)
     torch.cuda.synchronize()
@@ -326,10 +299,9 @@ def test_bwd_kernel_same_bits_every_run(cuda_f32, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl", ["cuda", "cuda_fwd"])
-def test_gated_stack_fn_routes(cuda_f32, impl):
-    """GatedStackFn on CUDA tensors: the kernel routes launch their kernels
-    and agree with the plain route's gradients."""
+def test_gated_stack_fn_routes(cuda_f32):
+    """GatedStackFn on CUDA tensors: the kernel route launches K3 and K4 and
+    agrees with the plain route's gradients."""
     dil, w, wq, _, x, tb, cond, cot = _train_case(cuda_f32, (2, 64, 128, 3, True))
 
     def grads(weights, route):
@@ -339,9 +311,9 @@ def test_gated_stack_fn_routes(cuda_f32, impl):
         return torch.autograd.grad((out * cot).sum(), leaves)
 
     before = (tgt.fwd_saves.launches, tgt.bwd.launches)
-    got = grads(w, impl)
+    got = grads(w, "cuda")
     launched = (tgt.fwd_saves.launches - before[0], tgt.bwd.launches - before[1])
-    assert launched == ((1, 1) if impl == "cuda" else (1, 0))
+    assert launched == (1, 1)
     for g, r in zip(got, grads(wq, "plain")):
         assert _rel(g, r) < BF16_GATE
 
@@ -386,7 +358,9 @@ def test_fused_sample_flagship_batch8(cuda_f32, name, steps):
     x_T = torch.randn(8, 640, 88, device=dev)
     wav = None if generation else 0.1 * torch.randn(8, 640 * 512, device=dev)
     with torch.no_grad():
-        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        so = task.sampler_operands()
+        w, head, kw = so.operands.weights, so.operands.head, so.operands.kernel
+        tables, t_bias, stochastic = so.tables, so.t_bias, so.stochastic
         noise = torch.randn(tables.shape[0], 8, 640, 88, device=dev) if stochastic else None
         cond = (torch.full((8, 640, 229), -1.0, device=dev) if generation
                 else tm.conditioner(waveform=wav))
@@ -394,13 +368,8 @@ def test_fused_sample_flagship_batch8(cuda_f32, name, steps):
                 not generation, 0.5, stochastic)
         wq = w._replace(**{k: getattr(w, k).to(torch.bfloat16).float() for k in ("wd", "wc", "wo")})
         before = (fused_sample.launches, tgs.gated_stack.launches)
-        counted = _counters()
         out = fused_sample(*args, kweights=kw)
         again = fused_sample(*args, kweights=kw)
-        n_steps = tables.shape[0]
-        _assert_tiles_counted(counted, tuple(
-            2 * n_steps * k for k in tgs.pass_tiles(8 * (1 + (not generation)), 640, 512, 15,
-                                                    _sms())))
         ref = fused_sample_ref(x_T, noise, t_bias, tables, wq, *args[5:])
     via_task = task.sample(x_T, waveform=wav, noise=noise)[0]
     n = tables.shape[0]
@@ -490,7 +459,9 @@ def test_presets_fused_sample(cuda_f32, name, sampler):
     tm, w, wq, kw, _, _, cond, _ = _preset_case(dev, name, b=1)
     task = DiffusionTask(tm, TaskConfig(timesteps=500, sampling_type=sampler, w=0.5))
     with torch.no_grad():
-        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        so = task.sampler_operands()
+        w, head, kw = so.operands.weights, so.operands.head, so.operands.kernel
+        tables, t_bias, stochastic = so.tables, so.t_bias, so.stochastic
         assert tables.shape == (500, 3) and t_bias.shape[0] == 500
         assert stochastic == (sampler == "cfdg_ddpm_x0")
         x_T = torch.randn(1, tm.config.frames, 88, device=dev)
@@ -592,7 +563,9 @@ def test_twin_fused_sample_batch8(cuda_f32, name, steps):
     x_T = torch.randn(8, 128, 88, device=dev)
     wav = 0.1 * torch.randn(8, 128 * 512, device=dev)
     with torch.no_grad():
-        w, head, kw, tables, t_bias, stochastic = task._fused_weights()
+        so = task.sampler_operands()
+        w, head, kw = so.operands.weights, so.operands.head, so.operands.kernel
+        tables, t_bias, stochastic = so.tables, so.t_bias, so.stochastic
         noise = torch.randn(tables.shape[0], 8, 128, 88, device=dev) if stochastic else None
         args = (x_T, noise, t_bias, tables, w, head, tm.conditioner(waveform=wav),
                 tm.config.dilations(), True, 0.5, stochastic)

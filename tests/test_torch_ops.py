@@ -19,6 +19,7 @@ from diffroll_tpu.ops.gated_stack import stack_weights as j_stack_weights
 from diffroll_tpu_torch import models as tmodels
 from diffroll_tpu_torch.compat import state_dict_from_jax
 from diffroll_tpu_torch.ops import fused_forward as t_fused_forward
+from diffroll_tpu_torch.ops.fused_forward import FusedOperands, head_weights
 
 # the module (the package re-exports a function of the same name)
 tgs = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
@@ -44,6 +45,7 @@ def _pair(unconditional=False, c=C, layers=L, frames=T, seed=0):
     head["kernel"] = 0.1 * jax.random.normal(jax.random.key(9), head["kernel"].shape)
     tm = tmodels.build(name, **kw)
     tm.net.load_state_dict(state_dict_from_jax(params))
+    tm.net.requires_grad_(False)  # these tests read the weights, never their gradients
     return jm, params, tm.eval()
 
 
@@ -60,12 +62,41 @@ def _stack_inputs(seed, b=B, t=T, c=C, layers=L):
 
 
 def test_stack_weights_match(pair):
+    """The stacked weights (the prepared operands': `stack_weights`' with the
+    diffusion projections filled in) are the JAX package's."""
     jm, params, tm = pair
     jw = j_stack_weights(params, L)
-    tw = tgs.stack_weights(tm.net)
+    tw = FusedOperands.of(tm.net).weights
     for name in jw._fields:
         np.testing.assert_array_equal(getattr(tw, name).numpy(), np.asarray(getattr(jw, name)),
                                       err_msg=name)
+
+
+@pytest.mark.parametrize("unconditional", [False, True], ids=["cond", "uncond"])
+def test_fused_operands_are_the_direct_builds(unconditional):
+    """`FusedOperands.of` holds, bit for bit, what `stack_weights` and
+    `head_weights` build from the same net, read without autograd, plus the
+    diffusion projections; off the card it holds no kernel operands.
+    `stack_weights` itself stays under autograd (the training route)."""
+    name = "DiffRoll" if unconditional else "ClassifierFreeDiffRoll"
+    kw = dict(residual_channels=C, residual_layers=L, frames=T, timesteps=12)
+    if unconditional:
+        kw["unconditional"] = True
+    torch.manual_seed(0)
+    net = tmodels.build(name, **kw).net
+    ops = FusedOperands.of(net)
+    w, head = tgs.stack_weights(net), head_weights(net)
+    assert ops.kernel is None and w.wt is None and w.bt is None and w.wd.requires_grad
+    assert (ops.weights.wc is None) == (w.wc is None) == unconditional
+    for field in ("wd", "wc", "wo", "b", "bc", "bo"):
+        got, want = getattr(ops.weights, field), getattr(w, field)
+        if want is not None:
+            assert torch.equal(got, want) and not got.requires_grad, field
+    layers = list(net.residual_layers)
+    assert torch.equal(ops.weights.wt,
+                       torch.stack([l.diffusion_projection.weight.t() for l in layers]))
+    assert torch.equal(ops.weights.bt, torch.stack([l.diffusion_projection.bias for l in layers]))
+    assert all(torch.equal(got, want) for got, want in zip(ops.head, head))
 
 
 @pytest.mark.parametrize("with_cond", [True, False], ids=["cond", "nocond"])

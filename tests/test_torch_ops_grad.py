@@ -165,10 +165,13 @@ def test_kernel_impls_run_plain_versions_on_cpu_tensors(impl):
     assert (fwd_saves.launches, bwd.launches) == (n3, n4)
 
 
-def test_unknown_impl_raises():
+@pytest.mark.parametrize("impl", ["pallas", "cuda_fwd"])
+def test_unknown_impl_raises(impl):
+    """Only 'plain' and 'cuda' are routes ('cuda_fwd', K3 with the plain
+    backward, is gone)."""
     x, tb, cond, w, _ = _setup(True)
     with pytest.raises(ValueError, match="impl"):
-        gated_stack_trainable(_t(x), _t(tb), _t(cond), _tw(w), DIL, "pallas")
+        gated_stack_trainable(_t(x), _t(tb), _t(cond), _tw(w), DIL, impl)
 
 
 @pytest.mark.parametrize("need_dcond", [True, False], ids=["dcond", "nodcond"])

@@ -178,3 +178,31 @@ def test_generator_draws_are_shared_by_both_routes(pair):
     assert _rel(outs[0].numpy(), outs[1].numpy()) < F32_GATE
     with pytest.raises(ValueError, match="needs `noise`"):
         TTask(tm, TTaskConfig(timesteps=STEPS)).sample(x_T, waveform=wav)
+
+
+@pytest.mark.parametrize("megakernel", [True, False], ids=["megakernel", "step_loop"])
+def test_task_keeps_its_operands_until_training_moves_the_weights(megakernel):
+    """The task prepares its sampling operands once and reuses them across
+    `sample` calls; `loss_fn(train=True)` drops them, so after an optimizer
+    step the next `sample` reads the new weights, as a fresh task does."""
+    torch.manual_seed(0)
+    tm = tmodels.build("ClassifierFreeDiffRoll", residual_channels=C, residual_layers=2,
+                       frames=T, timesteps=STEPS)
+    torch.nn.init.normal_(tm.net.output_projection.weight, std=0.1)
+    cfg = TTaskConfig(timesteps=STEPS, w=0.5, use_megakernel=megakernel)
+    task = TTask(tm, cfg)
+    gen = torch.Generator().manual_seed(1)
+    x_T, wav = torch.randn(B, T, 88, generator=gen), 0.1 * torch.randn(B, T * 512, generator=gen)
+    noise = torch.randn(STEPS, B, T, 88, generator=gen)
+    first = task.sample(x_T, waveform=wav, noise=noise)[0]
+    kept = task.sampler_operands()
+    assert torch.equal(task.sample(x_T, waveform=wav, noise=noise)[0], first)
+    assert task.sampler_operands() is kept
+    opt = torch.optim.Adam(tm.net.parameters(), lr=1e-2)
+    batch = {"frame": (torch.rand(B, T, 88, generator=gen) > 0.9).float(), "audio": wav}
+    task.loss_fn(batch, gen)[0].backward()
+    opt.step()
+    moved = task.sample(x_T, waveform=wav, noise=noise)[0]
+    assert task.sampler_operands() is not kept
+    assert torch.equal(moved, TTask(tm, cfg).sample(x_T, waveform=wav, noise=noise)[0])
+    assert not torch.equal(moved, first)

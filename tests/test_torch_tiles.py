@@ -59,6 +59,38 @@ def test_kernel_takes_width(c, unconditional):
         tgs.check_kernel_shapes(kw._replace(wcat=kw.wcat.float()), c, 2, torch.device("cpu"))
 
 
+def _preamble(kw, dilations=(1, 2), tb_shape=(2, 3, 64), cond_lanes=229):
+    """`kernel_preamble` for 3 sequences of 8 frames at C=64 on the CPU."""
+    cond = None if cond_lanes is None else torch.rand(3, 8, cond_lanes)
+    return tgs.kernel_preamble(kw, (3, 8, 64), torch.device("cpu"), dilations,
+                               torch.zeros(2, 3, 64), tb_shape, cond)
+
+
+def test_kernel_preamble_prepares_every_wrappers_operands():
+    """The time bias in f32, the conditioner zero-padded to the weights'
+    256 lanes in bf16, the dilations as C ints."""
+    tb, cond16, dil = _preamble(_kweights(64, 2))
+    assert tb.dtype == torch.float32 and tuple(tb.shape) == (2, 3, 64)
+    assert cond16.dtype == torch.bfloat16 and tuple(cond16.shape) == (3, 8, 256)
+    assert torch.all(cond16[..., 229:] == 0) and list(dil) == [1, 2]
+    assert _preamble(_kweights(64, 2, unconditional=True), cond_lanes=None)[1] is None
+
+
+@pytest.mark.parametrize("case,match", [
+    ("no_kweights", "kweights"), ("dilations", "3 dilations for 2 layers"),
+    ("t_bias", "t_bias"), ("cond_without_rows", "without conditioner weights"),
+    ("width", "multiple")])
+def test_kernel_preamble_refuses(case, match):
+    """Each wrapper's refusals, now made in one place."""
+    kw = _kweights(64, 2)
+    args = {"no_kweights": dict(kw=None), "dilations": dict(dilations=(1, 2, 4)),
+            "t_bias": dict(tb_shape=(2, 4, 64)),
+            "cond_without_rows": dict(kw=_kweights(64, 2, unconditional=True)),
+            "width": dict(kw=kw._replace(mp=229))}[case]
+    with pytest.raises(ValueError, match=match):
+        _preamble(**{"kw": kw, **args})
+
+
 @pytest.mark.parametrize("seqs,t_len,want", [
     (2, 640, [(b, t0) for b in range(2) for t0 in (0, 128, 256, 384, 512)]),
     (3, 100, [(0, 0), (1, 0), (2, 0)]),          # one ragged tile a sequence
@@ -109,21 +141,14 @@ def test_ping_pong_walk_deals_every_tile_once(ntiles, grid):
     (64, 512, 2428, 0.948),  # training at B=64: 2,560 tiles
 ])
 def test_hidden_epilogues_as_the_source_note_quotes(seqs, c, hidden, ratio):
-    """`gated_stack.hidden_epilogues` over `gated_stack.tiles` at the
-    benchmark's shapes, as the C entries count them (132 SMs, T=640, 15
-    layers: 2L GEMM launches a pass)."""
+    """The share of forward GEMM tiles whose epilogue runs under the other
+    warpgroup's k loop at the benchmark's shapes (132 SMs, T=640, 15 layers:
+    2L GEMM launches a pass)."""
     tiles, _ = tgs.tile_waves(seqs, 640, c)
     assert tgs.hidden_epilogues(tiles, min(tiles, tgs.SMS)) == hidden
     pass_tiles, pass_hidden = tgs.pass_tiles(seqs, 640, c, 15)
     assert (pass_tiles, pass_hidden) == (30 * tiles, 30 * hidden)
     assert round(pass_hidden / pass_tiles, 3) == ratio
-
-
-def test_count_tiles_adds_the_c_entries_counts():
-    before = (tgs.gated_stack.tiles, tgs.gated_stack.hidden_epilogues)
-    tgs.count_tiles((ctypes.c_int * 2)(19200, 15240))
-    assert (tgs.gated_stack.tiles - before[0],
-            tgs.gated_stack.hidden_epilogues - before[1]) == (19200, 15240)
 
 
 def _kernel_body(src, name):
