@@ -266,7 +266,12 @@ exits non-zero):
                 shapes over it; the phase fails on any), its forward and
                 backward beside F.group_norm's (device time, by CUDA graph
                 replay), and `slower`, the shapes where either is slower
-                than PyTorch's
+                than PyTorch's; under `depthwise_conv`, the same for the
+                U-Nets' depthwise 7x7 conv (ops/depthwise_conv.py) at B=16,
+                each distinct shape of SpecUnet's and UnetNet's forward
+                depthwise convs: y, dx, dw and db against F.conv2d in f64
+                (the phase fails on any shape at or over 1e-5), forward and
+                backward beside F.conv2d's, each pass's bytes bound
 The two lines before the last are the kernel summary (JSON) and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}. Each
 kernel's `bound_ms` is the larger of its operations over the card's published
@@ -280,12 +285,16 @@ bounds are its forward's at the largest SpecUnet norm at B=16, `_bwd` its
 backward's, `library_ms` F.group_norm's, which is also the plain version the
 CPU takes; its `max_abs_err` is the largest of y's against F.group_norm in
 f64 over every shape of phase times, `max_rel_err` the largest of y, dx,
-dgamma and dbeta);
+dgamma and dbeta) and for depthwise_conv (the U-Nets' depthwise 7x7 conv,
+csrc/depthwise_conv.cu, likewise: no TPU kernel, its forward and backward at
+the largest shape, F.conv2d as both library call and plain version, y, dx,
+dw and db against F.conv2d in f64);
 `launches_by_path` gives the count of each user-facing path that the script
 drives with the counters reset just before and read just after (transcribe,
 train, test, sample, serve, distill, distill_test: the students' test runs,
 baseline, trainable, v2, unet, spec_unet and bf16, each 0 of K1-K4, unet
-and spec_unet one group_norm a forward norm and the rest 0 of it,
+and spec_unet one group_norm a forward norm and one depthwise_conv a forward
+depthwise conv, the rest 0 of both,
 dp_train, dp_test and dp_distill: rank 0's counts in phase dp, mp_train and
 mp_distill: rank 0's in phase mp, serve_mesh and sp: rank 0's, sp 0 of every
 kernel; learn_fused and learn_autograd: the learning check's two routes
@@ -397,55 +406,75 @@ def graph_ms(fn, reps: int = 20) -> float:
     return time_ms(graph.replay, reps, 2)
 
 
+def hold_and_time(port, aten, leaves, dy, names, gate: float) -> dict:
+    """One shape's row, on the same inputs: `port(*leaves)` and its gradients
+    held against `aten`'s in f64 (`<name>_rel`: max|d| / max|ref|, and
+    `<name>_max_abs_err`, for the output and each leaf's gradient; `failed`
+    where any is at or over `gate`), then both routes' forward and backward
+    in f32, device ms by CUDA graph replay (the backward: a graph of forward
+    and `torch.autograd.grad` less the forward's); `slower` where either pass
+    of the port's is slower than PyTorch's. Grad is on inside, also under
+    phase times' no_grad."""
+    with torch.enable_grad():
+        y = port(*leaves)
+        got = (y, *torch.autograd.grad(y, leaves, dy))
+        ref = [t.detach().double().requires_grad_() for t in leaves]
+        y64 = aten(*ref)
+        want = (y64, *torch.autograd.grad(y64, ref, dy.double()))
+    row = {}
+    for key, a, b in zip(names, got, want):
+        d = float((a.detach().double() - b.detach()).abs().max())
+        row[f"{key}_rel"] = d / float(b.detach().abs().max())
+        row[f"{key}_max_abs_err"] = d
+    del got, y, ref, y64, want
+    for key, fn in (("port", port), ("aten", aten)):
+        with torch.enable_grad():
+            fwd = graph_ms(lambda: fn(*leaves))
+            both = graph_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, dy))
+        row[f"fwd_{key}_ms"], row[f"bwd_{key}_ms"] = fwd, both - fwd
+    row["failed"] = max(row[f"{k}_rel"] for k in names) >= gate
+    row["slower"] = row["fwd_port_ms"] > row["fwd_aten_ms"] or \
+        row["bwd_port_ms"] > row["bwd_aten_ms"]
+    return row
+
+
+def times_summary(rows: dict, names, batch: int, gate: float, largest: dict) -> dict:
+    """A kernel pair's per-shape rows with the shapes `failed` and `slower`,
+    and the largest errors: `max_abs_err` the output's, `max_rel_err` any
+    of `names`'."""
+    return {"batch": batch, "gate": gate, "shapes": rows,
+            "failed": [k for k, r in rows.items() if r["failed"]],
+            "slower": [k for k, r in rows.items() if r["slower"]], "largest": largest,
+            "max_abs_err": max(r[f"{names[0]}_max_abs_err"] for r in rows.values()),
+            "max_rel_err": max(r[f"{k}_rel"] for r in rows.values() for k in names)}
+
+
 GN_GATE = 1e-5   # GroupNorm against F.group_norm in f64, as tests/test_torch_kernels_gpu.py
 GN_OPS = 7       # operations a value, forward or backward: f32, far below the bytes' time
 
 
 def group_norm_times(dev, batch: int = 16) -> dict:
-    """Per shape, at `batch` rows and on the same inputs: the port's
-    GroupNorm (ops/group_norm.py) held against F.group_norm in f64 (y, dx,
-    dgamma, dbeta: max|d| / max|ref|, `failed` the shapes at or over GN_GATE),
-    then its forward and backward beside F.group_norm's in f32, device ms by
-    CUDA graph replay (the backward: a graph of forward and
-    `torch.autograd.grad` less the forward's); `slower`, the shapes where
-    either pass of the port's is slower than PyTorch's; and `largest`, the
-    shape with the most values, with its bytes bounds from the run's
-    tensors. Grad is on inside, also under phase times' no_grad."""
+    """Per shape, at `batch` rows: the port's GroupNorm (ops/group_norm.py)
+    against F.group_norm (`hold_and_time`: y, dx, dgamma, dbeta in f64 under
+    GN_GATE, both routes' device ms); and `largest`, the shape with the most
+    values, with its bytes bounds from the run's tensors."""
     from diffroll_tpu_torch.ops import group_norm as gn
 
     F = torch.nn.functional
+    names = ("y", "dx", "dgamma", "dbeta")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    out, slower, failed, largest = {}, [], [], None
+    out, largest = {}, None
     for c, h, w, groups in GROUP_NORM_SHAPES:
         x = (0.5 + 2.0 * torch.randn(batch, c, h, w, device=dev, generator=gen)).requires_grad_()
         weight = (1.0 + 0.05 * torch.randn(c, device=dev, generator=gen)).requires_grad_()
         bias = (0.1 * torch.randn(c, device=dev, generator=gen)).requires_grad_()
         dy = torch.randn(batch, c, h, w, device=dev, generator=gen)
-        with torch.enable_grad():
-            y = gn.group_norm(x, groups, weight, bias, 1e-6)
-            got = (y, *torch.autograd.grad(y, (x, weight, bias), dy))
-            ref = [t.detach().double().requires_grad_() for t in (x, weight, bias)]
-            y64 = F.group_norm(ref[0], groups, ref[1], ref[2], 1e-6)
-            want = (y64, *torch.autograd.grad(y64, ref, dy.double()))
-        row = {}
-        for key, a, b in zip(("y", "dx", "dgamma", "dbeta"), got, want):
-            d = float((a.detach().double() - b.detach()).abs().max())
-            row[f"{key}_rel"] = d / float(b.detach().abs().max())
-            row[f"{key}_max_abs_err"] = d
-        del got, y, ref, y64, want
-        for key, fn in (("port", gn.group_norm), ("aten", F.group_norm)):
-            with torch.enable_grad():
-                fwd = graph_ms(lambda: fn(x, groups, weight, bias, 1e-6))
-                both = graph_ms(lambda: torch.autograd.grad(fn(x, groups, weight, bias, 1e-6),
-                                                            (x, weight, bias), dy))
-            row[f"fwd_{key}_ms"], row[f"bwd_{key}_ms"] = fwd, both - fwd
+        row = hold_and_time(lambda x, w, b: gn.group_norm(x, groups, w, b, 1e-6),
+                            lambda x, w, b: F.group_norm(x, groups, w, b, 1e-6),
+                            (x, weight, bias), dy, names, GN_GATE)
         row["bytes_bound_ms"] = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_PER_S
         name = f"{c}x{h}x{w}_g{groups}"
         out[name] = row
-        if max(row[f"{k}_rel"] for k in ("y", "dx", "dgamma", "dbeta")) >= GN_GATE:
-            failed.append(name)
-        if row["fwd_port_ms"] > row["fwd_aten_ms"] or row["bwd_port_ms"] > row["bwd_aten_ms"]:
-            slower.append(name)
         if largest is None or x.numel() > largest["values"]:
             # forward: x, gamma, beta read, y written; backward: dy, x, gamma,
             # mean, rstd read, dx, dgamma, dbeta written
@@ -457,11 +486,49 @@ def group_norm_times(dev, batch: int = 16) -> dict:
                        "bound_bwd": bound(GN_OPS * x.numel(), 3 * nbytes(x) + 2 * nbytes(weight)
                                           + nbytes(bias) + stats)}
         del x, weight, bias, dy
-    return {"batch": batch, "gate": GN_GATE, "shapes": out, "failed": failed,
-            "slower": slower, "largest": largest,
-            "max_abs_err": max(r["y_max_abs_err"] for r in out.values()),
-            "max_rel_err": max(r[f"{k}_rel"] for r in out.values()
-                               for k in ("y", "dx", "dgamma", "dbeta"))}
+    return times_summary(out, names, batch, GN_GATE, largest)
+
+
+# every distinct (C, H, W) of SpecUnet's 24 forward depthwise 7x7 convs at its
+# published widths, and the two more of UnetNet's at its defaults
+DEPTHWISE_SHAPES = [(18, 640, 88), (28, 320, 44), (28, 640, 88), (56, 160, 22), (56, 320, 44),
+                    (112, 160, 22), (112, 320, 44), (168, 320, 44), (224, 160, 22),
+                    (336, 160, 22)]
+DW_GATE = 1e-5   # the depthwise convs against F.conv2d in f64, as tests/test_torch_kernels_gpu.py
+DW_OPS = 2 * 49  # operations a value and pass: 49 multiply-adds, under the bytes' time in f32
+
+
+def depthwise_conv_times(dev, batch: int = 16) -> dict:
+    """Per shape, at `batch` rows: the port's depthwise 7x7 conv
+    (ops/depthwise_conv.py) against F.conv2d, aten's conv_depthwise2d kernels
+    (`hold_and_time`: y, dx, dw, db in f64 under DW_GATE, both routes' device
+    ms), with each pass's bytes bound; and `largest`, the shape with the most
+    values, with its bounds from the run's tensors."""
+    from diffroll_tpu_torch.ops import depthwise_conv as dwc
+
+    F = torch.nn.functional
+    names = ("y", "dx", "dw", "db")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out, largest = {}, None
+    for c, h, w in DEPTHWISE_SHAPES:
+        x = (0.5 + torch.randn(batch, c, h, w, device=dev, generator=gen)).requires_grad_()
+        weight = (torch.randn(c, 1, 7, 7, device=dev, generator=gen) / 7).requires_grad_()
+        bias = (0.1 * torch.randn(c, device=dev, generator=gen)).requires_grad_()
+        dy = torch.randn(batch, c, h, w, device=dev, generator=gen)
+        row = hold_and_time(dwc.depthwise_conv, lambda x, w, b: F.conv2d(x, w, b, 1, 3, 1, c),
+                            (x, weight, bias), dy, names, DW_GATE)
+        # forward: x read, y written; backward: dy and x read, dx written
+        row["bytes_bound_ms"] = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_PER_S
+        row["bytes_bound_bwd_ms"] = 1e3 * 3 * x.numel() * 4 / PEAK_BYTES_PER_S
+        name = f"{c}x{h}x{w}"
+        out[name] = row
+        if largest is None or x.numel() > largest["values"]:
+            largest = {"shape": [batch, c, h, w], "name": name, "values": x.numel(),
+                       "bound": bound(DW_OPS * x.numel(), 2 * nbytes(x) + nbytes(weight, bias)),
+                       "bound_bwd": bound(2 * DW_OPS * x.numel(),
+                                          3 * nbytes(x) + 2 * nbytes(weight, bias))}
+        del x, weight, bias, dy
+    return times_summary(out, names, batch, DW_GATE, largest)
 
 
 def stack_flops(m: int, c: int, taps: int, mp: int, layers: int) -> float:
@@ -583,7 +650,8 @@ def run_test_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, ke
     if metrics["n_clips"] != TEST_RECORDINGS or not all(
             math.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f"test scored {metrics['n_clips']} recordings: {metrics}")
-    if launches != {"gated_stack": STEPS * batches, "fused_sample": batches, "group_norm": 0}:
+    if launches != {"gated_stack": STEPS * batches, "fused_sample": batches, "group_norm": 0,
+                    "depthwise_conv": 0}:
         raise RuntimeError(f"test did not run K2 once per batch of {SERVE_BATCH}: {launches}")
     phase("test", seconds=seconds, batches=batches, batch_size=SERVE_BATCH,
           seconds_per_batch=seconds / batches, n_clips=metrics["n_clips"],
@@ -620,7 +688,8 @@ def run_sample_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path, 
                     z["trajectory"]).all() or not (run_dir / f"{i:03d}_{m['clip']}.mid").exists():
                 raise RuntimeError(f"sample {mode}: bad clip {m}: {z['trajectory'].shape}")
         # one batch of 8 windows / noise draws: K1 once per step, K2 never
-        if launches != {"gated_stack": STEPS, "fused_sample": 0, "group_norm": 0}:
+        if launches != {"gated_stack": STEPS, "fused_sample": 0, "group_norm": 0,
+                        "depthwise_conv": 0}:
             raise RuntimeError(f"sample {mode} did not take the step loop: {launches}")
         runs[mode] = {"seconds": seconds, "launches": launches,
                       "notes": [m["notes"] for m in manifest],
@@ -708,8 +777,8 @@ def run_serve_phase(ckpt: pathlib.Path, sr: int, frames_per_s: float, kernels) -
         torch.cuda.synchronize()
         launches = kernel_launches(kernels)
         if launches["fused_sample"] != after["batches"] or launches["gated_stack"] < STEPS \
-                or launches["group_norm"]:
-            raise RuntimeError(f"serve did not run K2 once per batch (and no GroupNorm "
+                or launches["group_norm"] or launches["depthwise_conv"]:
+            raise RuntimeError(f"serve did not run K2 once per batch (and no U-Net "
                                f"kernel): {launches}, {after}")
         batches = after["batches"] - stats["batches"]
         sv = cfg.serve
@@ -756,7 +825,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     from diffroll_tpu_torch.train import TrainState, make_train_step
     from diffroll_tpu_torch.train.distill import make_distill_loss
 
-    gated_stack, fused_sample, fwd_saves, bwd, group_norm = kernels
+    gated_stack, fused_sample, fwd_saves, bwd, group_norm, depthwise_conv = kernels
     reset_launches(*kernels)
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -774,7 +843,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     # the teacher twice a step (one forward of 2B rows when guided), the
     # student's forward-with-saves and backward once
     if launches != {"gated_stack": 2 * n_steps, "fused_sample": 0, "fwd_saves": n_steps,
-                    "bwd": n_steps, "group_norm": 0}:
+                    "bwd": n_steps, "group_norm": 0, "depthwise_conv": 0}:
         raise RuntimeError(f"distill did not launch K1 twice and K3, K4 once a step: "
                            f"{launches}")
     losses = [float(v) for v in re.findall(r"distill_loss (\S+)", log.getvalue())]
@@ -787,7 +856,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
     if not all(c.exists() for c in stage_ckpts.values()):
         raise RuntimeError(f"distill wrote no stage checkpoint: {stage_ckpts}")
 
-    test_kernels = (gated_stack, fused_sample, group_norm)
+    test_kernels = (gated_stack, fused_sample, group_norm, depthwise_conv)
     tests, test_launches = {}, dict.fromkeys(kernel_launches(test_kernels), 0)
     for n, stage_ckpt in stage_ckpts.items():
         reset_launches(*test_kernels)
@@ -798,7 +867,7 @@ def run_distill_phase(ckpt: pathlib.Path, data: pathlib.Path, out: pathlib.Path,
         torch.cuda.synchronize()
         got = kernel_launches(test_kernels)
         # one batch of 8 windows: K2 once, its n steps one stream each
-        if got != {"gated_stack": n, "fused_sample": 1, "group_norm": 0} \
+        if got != {"gated_stack": n, "fused_sample": 1, "group_norm": 0, "depthwise_conv": 0} \
                 or metrics["n_clips"] != TEST_RECORDINGS \
                 or not all(math.isfinite(v) for v in metrics.values()):
             raise RuntimeError(f"test on the {n}-step student: {got}, {metrics}")
@@ -999,11 +1068,12 @@ def run_family(argv, data: pathlib.Path, out: pathlib.Path, kernels, then: str,
     ) / TIMED_STEPS
     if not torch.isfinite(out_x[0]).all():
         raise RuntimeError(f"{argv}: the reverse process gave non-finite values")
-    # no stack kernel; the U-Nets' norms, and only theirs, on the GroupNorm kernels
+    # no stack kernel; the U-Nets' norms and depthwise convs, and only theirs, on
+    # their kernels
     launches = kernel_launches(kernels)
-    norms = launches["group_norm"]
-    if any(v for k, v in launches.items() if k != "group_norm") or \
-            (norms > 0) != (mc.variant in ("unet", "spec_unet")):
+    unet_kernels, is_unet = ("group_norm", "depthwise_conv"), mc.variant in ("unet", "spec_unet")
+    if any(v for k, v in launches.items() if k not in unet_kernels) or \
+            any((launches[k] > 0) != is_unet for k in unet_kernels):
         raise RuntimeError(f"{argv} launched {launches}")
     reading.update(reverse_batch=rows, steps=mc.timesteps, timed_steps=TIMED_STEPS,
                    sampler=task_cfg.sampling_type,
@@ -1014,8 +1084,8 @@ def run_family(argv, data: pathlib.Path, out: pathlib.Path, kernels, then: str,
 
 def run_family_phases(tmp: pathlib.Path, sr: int, kernels) -> dict:
     """The phases trainable, v2, unet and spec_unet; returns each path's
-    launch counts (K1-K4 zero; the U-Nets' GroupNorm kernels in unet and
-    spec_unet)."""
+    launch counts (K1-K4 zero; the U-Nets' GroupNorm and depthwise conv
+    kernels in unet and spec_unet)."""
     import shutil
 
     # a train-only corpus (the 48 recordings): its `train` skips the post-fit
@@ -1307,6 +1377,7 @@ def dp_worker(rank: int, world: int, port: int, spec_path: str) -> int:
     from diffroll_tpu_torch.ops import _build
     from diffroll_tpu_torch.ops.gated_stack import gated_stack
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.depthwise_conv import depthwise_conv
     from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
     from diffroll_tpu_torch.parallel import setup_mesh
@@ -1316,7 +1387,7 @@ def dp_worker(rank: int, world: int, port: int, spec_path: str) -> int:
     from diffroll_tpu_torch import config as tconfig
 
     _build.library()
-    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm, depthwise_conv)
     dev = torch.device("cuda")
     res = {"rank": rank}
     # K2's batch as the sharded test gives it
@@ -1611,11 +1682,12 @@ def mesh_worker(name: str, rank: int, world: int, port: int, spec_path: str) -> 
     from diffroll_tpu_torch.ops import _build
     from diffroll_tpu_torch.ops.gated_stack import gated_stack
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, fwd_saves
+    from diffroll_tpu_torch.ops.depthwise_conv import depthwise_conv
     from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import fused_sample
 
     _build.library()
-    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
+    kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm, depthwise_conv)
     res = {"mp": mp_rank, "serve_mesh": serve_mesh_rank, "sp": sp_rank}[name](rank, spec, kernels)
     res["rank"] = rank
     (pathlib.Path(spec["out"]) / f"{name}_rank{rank}.json").write_text(json.dumps(res))
@@ -2405,7 +2477,8 @@ def run_paper_phase(tmp: pathlib.Path, kernels) -> dict:
           reduced="the script's smoke sizes (8 + 2 clips a tree, 2 layers, T=4, one epoch a "
                   "stage, 200 distill steps to a 2-step student) at 128 channels and 128 frames")
     if not all(launches[k] > 0 for k in ("gated_stack", "fused_sample", "fwd_saves", "bwd")) \
-            or launches["fwd_saves"] != launches["bwd"] or launches["group_norm"]:
+            or launches["fwd_saves"] != launches["bwd"] or launches["group_norm"] \
+            or launches["depthwise_conv"]:
         raise RuntimeError(f"paper: the pipeline skipped a kernel: {launches}")
     if shutil.which("g++") and not native_tier:
         raise RuntimeError("paper: the native library fell back to numpy on a host with g++")
@@ -2432,6 +2505,7 @@ def main() -> int:
     gs_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack")
     gt_module = importlib.import_module("diffroll_tpu_torch.ops.gated_stack_train")
     from diffroll_tpu_torch.ops.gated_stack_train import bwd, bwd_ref, fwd_saves, fwd_saves_ref
+    from diffroll_tpu_torch.ops.depthwise_conv import depthwise_conv
     from diffroll_tpu_torch.ops.group_norm import group_norm
     from diffroll_tpu_torch.ops.sampler_kernel import (
         fused_sample, fused_sample_ref, sampler_tables)
@@ -2475,7 +2549,7 @@ def main() -> int:
         audio_dir.mkdir()
         sr = mc.mel.sample_rate
         write_wav(audio_dir / "chords.wav", chord_wav(30.0, sr, SEED), sr)
-        reset_launches(gated_stack, fused_sample, group_norm)
+        reset_launches(gated_stack, fused_sample, group_norm, depthwise_conv)
         t0 = time.perf_counter()
         run_dir = cli_transcribe.main([
             f"pretrained_path={ckpt}", f"dataset.audio_path={audio_dir}",
@@ -2483,7 +2557,7 @@ def main() -> int:
             "device=cuda", f"trainer.output_dir={tmp / 'out'}"])
         torch.cuda.synchronize()
         e2e = time.perf_counter() - t0
-        launches = kernel_launches((gated_stack, fused_sample, group_norm))
+        launches = kernel_launches((gated_stack, fused_sample, group_norm, depthwise_conv))
         roll = np.load(run_dir / "000_chords.npz")["roll"]
         want_frames = math.ceil(30.0 * sr / mc.mel.hop_length)
         if roll.shape != (want_frames, mc.pitches) or not np.isfinite(roll).all():
@@ -2502,7 +2576,7 @@ def main() -> int:
         # ---- train: the CLI at full width on a corpus written here
         write_maps_corpus(tmp / "data", TRAIN_BATCH * TRAIN_STEPS, 21.0, sr, SEED)
         write_maps_corpus(tmp / "data", TEST_RECORDINGS, 21.0, sr, SEED + 1, subset="ENSTDkCl")
-        reset_launches(gated_stack, fused_sample, fwd_saves, bwd, group_norm)
+        reset_launches(gated_stack, fused_sample, fwd_saves, bwd, group_norm, depthwise_conv)
         t0 = time.perf_counter()
         state = cli_train.main([
             "spec_roll", f"dataset.root={tmp / 'data'}", "task.fused_train=true",
@@ -2511,7 +2585,8 @@ def main() -> int:
             "trainer.ema_decay=0.999", f"trainer.output_dir={tmp / 'train_out'}"])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        train_launches = kernel_launches((fwd_saves, bwd, gated_stack, fused_sample, group_norm))
+        train_launches = kernel_launches((fwd_saves, bwd, gated_stack, fused_sample, group_norm,
+                                          depthwise_conv))
         run_dirs = list((tmp / "train_out").glob("*/*/train-*"))
         if len(run_dirs) != 1:
             raise RuntimeError(f"expected one train run dir, found {run_dirs}")
@@ -2576,14 +2651,14 @@ def main() -> int:
         del trained, ttask, tstate
 
         # ---- the entries that use a trained model: test, sample, serve
-        kernels = (gated_stack, fused_sample, group_norm)
+        kernels = (gated_stack, fused_sample, group_norm, depthwise_conv)
         path_launches = {"transcribe": launches, "train": train_launches,
                          "test": run_test_phase(last_ckpt, tmp / "data", tmp / "test_out",
                                                 kernels),
                          "sample": run_sample_phase(last_ckpt, tmp / "data", tmp / "sample_out",
                                                     mc.frames, kernels),
                          "serve": run_serve_phase(ckpt, sr, sr / mc.mel.hop_length, kernels)}
-        all_kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm)
+        all_kernels = (gated_stack, fused_sample, fwd_saves, bwd, group_norm, depthwise_conv)
         (path_launches["distill"], path_launches["distill_test"],
          distill_step_ms) = run_distill_phase(last_ckpt, tmp / "data", tmp / "distill_out",
                                               all_kernels)
@@ -2910,10 +2985,15 @@ def main() -> int:
             gemm[f"bwd_m{xb.shape[0] * t_len}"] = bwd_gemm_times(
                 gt_module, xb, tbb, condb, w, kw, dil)
         norm_times = group_norm_times(dev)
-        phase("times", card=card, **times, gemm=gemm, group_norm=norm_times)
+        dw_times = depthwise_conv_times(dev)
+        phase("times", card=card, **times, gemm=gemm, group_norm=norm_times,
+              depthwise_conv=dw_times)
         if norm_times["failed"]:
             raise RuntimeError(f"the GroupNorm kernels against F.group_norm in f64 at "
                                f"{norm_times['failed']}")
+        if dw_times["failed"]:
+            raise RuntimeError(f"the depthwise conv kernels against F.conv2d in f64 at "
+                               f"{dw_times['failed']}")
 
     # ---- bounds, from this run's inputs: each input read once, each output
     # written once, against the products each function does
@@ -2943,6 +3023,8 @@ def main() -> int:
                          + nbytes(kw.wcat, kw.wo) + dw_bytes)
     bounds["group_norm"] = norm_times["largest"]["bound"]
     bounds["group_norm_bwd"] = norm_times["largest"]["bound_bwd"]
+    bounds["depthwise_conv"] = dw_times["largest"]["bound"]
+    bounds["depthwise_conv_bwd"] = dw_times["largest"]["bound_bwd"]
     phase("bounds", peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
           peak_tbytes_per_s=PEAK_BYTES_PER_S / 1e12, **bounds)
 
@@ -2982,6 +3064,16 @@ def main() -> int:
                   max_rel_err=norm_times["max_rel_err"], ms_bwd=norm_shape["bwd_port_ms"],
                   library_ms_bwd=norm_shape["bwd_aten_ms"],
                   bound_ms_bwd=bounds["group_norm_bwd"]["bound_ms"])
+    # the U-Nets' depthwise 7x7 conv: its forward at the largest shape, beside
+    # F.conv2d, which is both its library call and the CPU's plain version
+    dw_shape = dw_times["shapes"][dw_times["largest"]["name"]]
+    dw_row = row("depthwise_conv", "depthwise_conv", "diffroll_tpu_torch/csrc/depthwise_conv.cu",
+                 None, path_launches["spec_unet"]["depthwise_conv"], dw_times["max_abs_err"],
+                 dw_shape["fwd_port_ms"], dw_shape["fwd_aten_ms"])
+    dw_row.update(library_ms=dw_shape["fwd_aten_ms"], shape=dw_times["largest"]["shape"],
+                  max_rel_err=dw_times["max_rel_err"], ms_bwd=dw_shape["bwd_port_ms"],
+                  library_ms_bwd=dw_shape["bwd_aten_ms"],
+                  bound_ms_bwd=bounds["depthwise_conv_bwd"]["bound_ms"])
     print(json.dumps({"kernels": [
         k1_row,
         k2_row,
@@ -2990,6 +3082,7 @@ def main() -> int:
         row("k4", "bwd", train_src, "diffroll_tpu/ops/gated_stack_train.py:388",
             train_launches["bwd"], k4_abs, times["k4_ms"], times["k4_plain_ms"]),
         gn_row,
+        dw_row,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,16 @@ records, else one check), the forward's only:
                      streams together)
   unet.norm          every GroupNorm, inside `unet.block`, `unet.linear_attn`
                      or `unet.attn`
+  unet.dwconv        every depthwise 7x7 conv, inside `unet.block`
 
 Every norm is a `GroupNorm`: an `nn.GroupNorm` (same arguments, `weight` and
 `bias`) whose forward runs the port's kernels on CUDA inputs
-(`ops/group_norm.py`) and `F.group_norm` on CPU ones.
+(`ops/group_norm.py`) and `F.group_norm` on CPU ones. Every depthwise conv
+(`groups` equal to both widths: the blocks' `ds_conv` and the non-lifting
+`spec_ds_conv`) is a `DepthwiseConv2d`, likewise an `nn.Conv2d` whose
+convolution runs `ops/depthwise_conv.py`'s kernels on CUDA inputs and
+`F.conv2d` on CPU ones; the dense 7x7s (`init_conv`, `spec_init_conv`, the
+up path's lifting `spec_ds_conv`) stay `nn.Conv2d`.
 
 `attn_rows` counts the rows (sequences) through the bottleneck's full
 attention in this process.
@@ -43,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import depthwise_conv as dw_ops
 from ..ops import group_norm as gn_ops
 from ..utils.profiling import span
 from .init import dense, lecun_normal
@@ -70,9 +77,23 @@ def group_norm(channels: int, groups: int = 1) -> nn.GroupNorm:
     return GroupNorm(groups, channels, eps=GN_EPS)
 
 
+class DepthwiseConv2d(nn.Conv2d):
+    """`nn.Conv2d` with one filter a channel whose convolution takes
+    `ops.depthwise_conv.depthwise_conv`: the port's kernels on CUDA inputs,
+    `F.conv2d` on CPU ones."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        with span("unet.dwconv"):
+            return dw_ops.depthwise_conv(x, weight, bias, self.stride, self.padding,
+                                         self.dilation)
+
+
 def conv(in_ch: int, out_ch: int, k: int, groups: int = 1, bias: bool = True) -> nn.Conv2d:
-    """A stride-1 'SAME' convolution (odd k)."""
-    return lecun_normal(nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias))
+    """A stride-1 'SAME' convolution (odd k); a `DepthwiseConv2d` where each
+    channel has its own filter (groups == in_ch == out_ch)."""
+    cls = DepthwiseConv2d if groups == in_ch == out_ch else nn.Conv2d
+    return lecun_normal(cls(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias))
 
 
 def _same_padding(n: int, k: int, s: int) -> Tuple[int, int]:

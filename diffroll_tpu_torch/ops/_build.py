@@ -40,6 +40,8 @@ SIGNATURES = {
                        _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "drk_group_norm_fwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     "drk_group_norm_bwd": [_P] * 11 + [_I] * 6 + [_P],
+    "drk_dwconv_fwd": [_P] * 4 + [_I] * 8 + [_P],
+    "drk_dwconv_bwd": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

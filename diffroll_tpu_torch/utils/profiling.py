@@ -42,6 +42,8 @@ same clock as the card's kernels and copies:
   unet.resample         a level's down- or up-samplers
   unet.norm             a U-Net GroupNorm (nn/unet.py::GroupNorm), inside
                         `unet.block`, `unet.linear_attn` or `unet.attn`
+  unet.dwconv           a U-Net depthwise 7x7 conv
+                        (nn/unet.py::DepthwiseConv2d), inside `unet.block`
 
 A profile records only the threads it was started on unless it is started
 with `profile_all_threads` (`torch._C._profiler._ExperimentalConfig`), so

@@ -743,3 +743,128 @@ def test_spec_unet_training_step_launches_every_norm(cuda_f32):
     assert tgn.group_norm.launches - before == 63
     assert torch.isfinite(losses["diffusion_loss"])
     assert all(torch.isfinite(p).all() for p in tm.parameters())
+
+
+# ---- the U-Nets' depthwise 7x7 convs (ops/depthwise_conv.py,
+# csrc/depthwise_conv.cu): every distinct (C, H, W) of SpecUnet's 24 forward
+# depthwise convs and UnetNet's, at the cell's batch of 16; then ragged rows and
+# columns on the 4-byte path, a width cut into column tiles, and one column
+tdw = importlib.import_module("diffroll_tpu_torch.ops.depthwise_conv")
+DW_SHAPES = [(16, 18, 640, 88), (16, 28, 320, 44), (16, 28, 640, 88), (16, 56, 160, 22),
+             (16, 56, 320, 44), (16, 112, 160, 22), (16, 112, 320, 44), (16, 168, 320, 44),
+             (16, 224, 160, 22), (16, 336, 160, 22), (3, 5, 37, 13), (2, 3, 9, 300),
+             (2, 2, 50, 1)]
+DW_GATE = 1e-5
+
+
+def _dw_case(dev, n, c, h, w, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.5 + torch.randn(n, c, h, w, device=dev, generator=gen)
+    weight = torch.randn(c, 1, 7, 7, device=dev, generator=gen) / 7
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    dy = torch.randn(n, c, h, w, device=dev, generator=gen)
+    return x, weight, bias, dy
+
+
+def _dw_grads(x, weight, bias, dy, fn):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = fn(leaves[0], leaves[1], leaves[2])
+    y.backward(dy.to(y.dtype))
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+def _dw_aten(x, weight, bias):
+    return torch.nn.functional.conv2d(x, weight, bias, 1, 3, 1, x.shape[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,h,w", DW_SHAPES, ids=[f"{n}x{c}x{h}x{w}" for n, c, h, w in DW_SHAPES])
+def test_depthwise_conv_kernels_match_f64(cuda_f32, n, c, h, w):
+    """y, dx, dw and db through the kernels against F.conv2d in f64, each
+    within 1e-5 of the reference's largest value, and the same bits on a
+    second run (the weight gradient has no atomics)."""
+    x, weight, bias, dy = _dw_case(cuda_f32, n, c, h, w)
+    before = tdw.depthwise_conv.launches
+    got = _dw_grads(x, weight, bias, dy, tdw.depthwise_conv)
+    again = _dw_grads(x, weight, bias, dy, tdw.depthwise_conv)
+    want = _dw_grads(x.double(), weight.double(), bias.double(), dy, _dw_aten)
+    torch.cuda.synchronize()
+    assert tdw.depthwise_conv.launches - before == 2
+    for name, out, ref, rerun in zip(("y", "dx", "dw", "db"), got, want, again):
+        assert out.dtype == torch.float32 and _rel(out.double(), ref) < DW_GATE, name
+        assert torch.equal(out, rerun), name
+
+
+@pytest.mark.gpu
+def test_depthwise_conv_kernels_take_a_transposed_input(cuda_f32):
+    """A transposed input and gradient go through the kernels (on a
+    contiguous copy) and match F.conv2d in f64; a call the kernels cannot
+    take raises instead of falling back."""
+    x, weight, bias, dy = _dw_case(cuda_f32, 4, 28, 88, 320)
+    xt, dyt = x.transpose(2, 3), dy.transpose(2, 3)
+    assert not xt.is_contiguous()
+    before = tdw.depthwise_conv.launches
+    got = _dw_grads(xt, weight, bias, dyt, tdw.depthwise_conv)
+    want = _dw_grads(xt.double(), weight.double(), bias.double(), dyt, _dw_aten)
+    torch.cuda.synchronize()
+    assert tdw.depthwise_conv.launches - before == 1
+    for name, out, ref in zip(("y", "dx", "dw", "db"), got, want):
+        assert _rel(out.double(), ref) < DW_GATE, name
+    with pytest.raises(ValueError):
+        tdw.depthwise_conv(x.double(), weight.double(), bias.double())
+
+
+@pytest.mark.gpu
+def test_spec_unet_training_step_launches_every_depthwise_conv(cuda_f32):
+    """One SpecUnet training step at the published B=16: all 24 forward
+    depthwise convs on the kernels, a finite loss and gradients."""
+    from diffroll_tpu_torch.train import TrainState, make_train_step
+
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("SpecUnet").to(dev)
+    task = DiffusionTask(tm, TaskConfig(timesteps=200))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"frame": (torch.rand(16, 640, 88, device=dev, generator=gen) < 0.08).float(),
+             "audio": 0.1 * torch.randn(16, 640 * 512, device=dev, generator=gen)}
+    state = TrainState.create(tm, 5e-5)
+    step = make_train_step(lambda b, g, train: task.loss_fn(b, g, train))
+    before = tdw.depthwise_conv.launches
+    losses = step(state, batch, gen)
+    torch.cuda.synchronize()
+    assert tdw.depthwise_conv.launches - before == 24
+    assert torch.isfinite(losses["diffusion_loss"])
+    assert all(torch.isfinite(p).all() for p in tm.parameters())
+
+
+@pytest.mark.gpu
+def test_unet_step_matches_its_aten_route(cuda_f32, monkeypatch):
+    """UnetNet's forward and every parameter's gradient with the depthwise
+    convs on the kernels against the same net with them on F.conv2d, each
+    within 1e-5 of the aten route's largest value."""
+    from diffroll_tpu_torch.nn import unet
+
+    dev = cuda_f32
+    torch.manual_seed(0)
+    net = unet.UnetNet().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(4, 640, 88, device=dev, generator=gen)
+    t = torch.randint(0, 200, (4,), device=dev, generator=gen)
+
+    def run():
+        net.zero_grad()
+        out = net(x, t)
+        out.square().mean().backward()
+        return out.detach(), {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    kernels = tdw.depthwise_conv
+    before = kernels.launches
+    got = run()
+    assert kernels.launches - before == 13
+    monkeypatch.setattr(unet.dw_ops, "depthwise_conv",
+                        lambda x, w, b, stride, padding, dilation: _dw_aten(x, w, b))
+    want = run()
+    assert kernels.launches - before == 13
+    assert _rel(got[0], want[0]) < DW_GATE
+    for name, g in want[1].items():
+        assert _rel(got[1][name], g) < DW_GATE, name

@@ -25,7 +25,7 @@ from bench_port import run as bench
 from bench_port import trace as bench_trace
 from bench_port import trace_annotated, weights_unet
 from bench_port.counts import spec_unet as counts
-from bench_port.counts import unet_norms
+from bench_port.counts import unet_dwconvs, unet_norms
 from bench_port.reference import diffroll as ref
 from bench_port.reference import spec_unet as uref
 from bench_port.runners import train_unet
@@ -246,10 +246,11 @@ def test_the_forward_emits_the_unet_spans_and_counts_attention_rows(tmp_path):
     names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
     # 13 blocks, 5 linear attentions, the bottleneck, 2 down- and 2 up-levels;
-    # 4 norms a block, 2 a linear attention, 1 before the bottleneck's
+    # 4 norms a block, 2 a linear attention, 1 before the bottleneck's; 2
+    # depthwise convs a block, 1 in the up path's two lifting blocks
     assert {n: names.count(n) for n in set(names) if n.startswith("unet.")} == {
         "unet.block": 13, "unet.linear_attn": 5, "unet.attn": 1, "unet.resample": 4,
-        "unet.norm": 63}
+        "unet.norm": 63, "unet.dwconv": 24}
 
 
 class _Run:
@@ -287,7 +288,8 @@ def test_device_time_inside_the_annotations():
 @pytest.mark.parametrize("metric,span,bound", [
     ("unet.attn_roofline", "unet.attn", counts.attn_bound_s),
     ("unet.block_roofline", "unet.block", counts.blocks_bound_s),
-    ("unet.norm_roofline", "unet.norm", unet_norms.norms_bound_s)])
+    ("unet.norm_roofline", "unet.norm", unet_norms.norms_bound_s),
+    ("unet.dwconv_roofline", "unet.dwconv", unet_dwconvs.dwconvs_bound_s)])
 def test_roofline_readers(metric, span, bound):
     tr = _annotated([(span, 0, 2000)])
     run = _Run({"trace": tr, "traced_steps": 2})
