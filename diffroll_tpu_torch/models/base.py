@@ -162,7 +162,10 @@ class DiffRollModel(nn.Module):
 
     def apply(self, x_t, t, cond, uncond_mask=None, cond_proj=None):
         """Denoiser forward: (B, T, 88) x (B,) x (B, T, n_cond) -> (B, T, 88).
-        The U-Nets take no `cond_proj`."""
+        `cond_proj`, `cond_projections`' output for these rows computed once
+        per clip, stands for `cond` and `uncond_mask`: the stacks' per-layer
+        projections, or SpecUnet's spectrogram stream (then only the x stream
+        runs). The unconditional `UnetNet` takes none."""
         if cond_proj is None:
             return self.net(x_t, t, cond, uncond_mask)
         return self.net(x_t, t, cond, uncond_mask, cond_proj=cond_proj)

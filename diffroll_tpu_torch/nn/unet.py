@@ -14,18 +14,31 @@ flax defaults kept: GroupNorm epsilon 1e-6, the tanh approximation of GELU,
 'SAME' convolutions. Attention is computed as the JAX package computes it,
 with einsum and softmax.
 
+SpecUnet's spectrogram stream reads neither x nor t, so a reverse process
+computes it once a batch: `SpecUnetNet.cond_projections` runs it alone and
+returns what the x stream reads of it (`SpecProjections`: each block's
+spectrogram input and the up path's spectrogram skips), and
+`SpecUnetNet.forward(..., cond_proj=)` then runs the x stream alone. Without
+`cond_proj` (training) the forward runs both streams block by block, the
+last block's spectrogram net included, whose output nothing reads.
+
 Spans (`utils/profiling.py::span`, a `user_annotation` while a profile
-records, else one check), the forward's only:
+records, else one check), the forward's and `cond_projections`':
 
   unet.block         every ConvNeXt (or ResNet) block; a SpecUnet block's
-                     two streams together
+                     two streams together, or its x part alone (`cond_proj`)
   unet.linear_attn   every `PreNormResidual(LinearAttention)`
   unet.attn          the bottleneck's `PreNormResidual(Attention)`
   unet.resample      every down- and up-sampler (a SpecUnet level's two
-                     streams together)
-  unet.norm          every GroupNorm, inside `unet.block`, `unet.linear_attn`
-                     or `unet.attn`
-  unet.dwconv        every depthwise 7x7 conv, inside `unet.block`
+                     streams together, or the x stream's alone)
+  unet.norm          every GroupNorm, inside `unet.block`, `unet.linear_attn`,
+                     `unet.attn` or `unet.spec_stream`
+  unet.dwconv        every depthwise 7x7 conv, inside `unet.block` or
+                     `unet.spec_stream`
+  unet.spec_stream   `SpecUnetNet.cond_projections`, the spectrogram stream
+                     alone; no block or resampler span inside it, so that
+                     its card interval (the first to the last device op it
+                     launches outside a nested span) covers the stream
 
 Every norm is a `GroupNorm`: an `nn.GroupNorm` (same arguments, `weight` and
 `bias`) whose forward runs the port's kernels on CUDA inputs
@@ -37,13 +50,14 @@ convolution runs `ops/depthwise_conv.py`'s kernels on CUDA inputs and
 up path's lifting `spec_ds_conv`) stay `nn.Conv2d`.
 
 `attn_rows` counts the rows (sequences) through the bottleneck's full
-attention in this process.
+attention in this process, `spec_rows` those through SpecUnet's spectrogram
+stream (in a forward without `cond_proj`, or in `cond_projections`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +71,7 @@ from .init import dense, lecun_normal
 GN_EPS = 1e-6    # flax nn.GroupNorm's default (PyTorch's is 1e-5)
 HEADS, DIM_HEAD = 4, 32
 attn_rows = 0   # rows through `Attention`, the bottleneck's full attention
+spec_rows = 0   # rows through `SpecUnetNet`'s spectrogram stream
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -343,14 +358,33 @@ class SpecConvNextBlock(nn.Module):
         z = m[f"{prefix}conv1"](m[f"{prefix}norm1"](z))
         return m[f"{prefix}conv2"](m[f"{prefix}norm2"](gelu(z)))
 
+    def spec_net(self, spec_h: torch.Tensor) -> torch.Tensor:
+        """The spectrogram stream's output from `spec_h`."""
+        return self._net(spec_h, "spec_net_")
+
+    def x_part(self, x: torch.Tensor, spec_h: torch.Tensor, t_emb=None) -> torch.Tensor:
+        """The x stream's output: its depthwise 7x7 plus `spec_h` (the
+        spectrogram's 7x7, `spec_ds_conv`) and the step bias, the net, the
+        residual."""
+        h = self.ds_conv(x)
+        if t_emb is not None:
+            h = h + spec_h + self.time_mlp(gelu(t_emb))[:, :, None, None]
+        res = x if self.res_conv is None else self.res_conv(x)
+        return self._net(h, "net_") + res
+
     def forward(self, x, spec, t_emb=None):
         with span("unet.block"):
-            h = self.ds_conv(x)
             spec_h = self.spec_ds_conv(spec)
-            if t_emb is not None:
-                h = h + spec_h + self.time_mlp(gelu(t_emb))[:, :, None, None]
-            res = x if self.res_conv is None else self.res_conv(x)
-            return self._net(h, "net_") + res, self._net(spec_h, "spec_net_")
+            return self.x_part(x, spec_h, t_emb), self.spec_net(spec_h)
+
+
+class SpecProjections(NamedTuple):
+    """What `SpecUnetNet`'s x stream reads of the spectrogram stream: each
+    block's `spec_h`, in the order the blocks run, and the spectrogram skips,
+    in the order the up path concatenates them."""
+
+    spec_h: Tuple[torch.Tensor, ...]
+    skips: Tuple[torch.Tensor, ...]
 
 
 class SpecUnetNet(nn.Module):
@@ -396,13 +430,86 @@ class SpecUnetNet(nn.Module):
         self.final_block = block(width, dim)
         self.final_conv = conv(dim, 1, 1)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
-                uncond_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _spec_input(self, cond: torch.Tensor,
+                    uncond_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The log-mel, := -1 on `uncond_mask`'s rows, through the stream's
+        7x7 and the mel-to-key projection: (B, C, T, 88)."""
+        global spec_rows
+        spec_rows += cond.shape[0]
         if uncond_mask is not None:
             cond = torch.where(uncond_mask[:, None, None], torch.full_like(cond, -1.0), cond)
+        return self.spec_init_fc(self.spec_init_conv(cond[:, None]))
+
+    def cond_projections(self, cond: torch.Tensor,
+                         uncond_mask: Optional[torch.Tensor] = None) -> SpecProjections:
+        """The spectrogram stream alone over `cond`'s rows (spec := -1 on
+        `uncond_mask`'s, as `forward` sets it): what the x stream reads of it,
+        for `forward(..., cond_proj=)`. The last block's spectrogram net,
+        whose output nothing reads, is not computed."""
+        with span("unet.spec_stream"):
+            m = self._modules
+            spec = self._spec_input(cond, uncond_mask)
+            spec_h, skips = [], []
+
+            def block(name: str, net: bool = True):
+                nonlocal spec
+                spec_h.append(m[name].spec_ds_conv(spec))
+                if net:
+                    spec = m[name].spec_net(spec_h[-1])
+
+            for i in range(self.n_levels):
+                block(f"down_{i}_block1")
+                block(f"down_{i}_block2")
+                skips.append(spec)
+                if i < self.n_levels - 1:
+                    spec = m[f"down_{i}_spec_ds"](spec)
+            block("mid_block1")
+            block("mid_block2")
+            for i in range(self.n_levels - 1):
+                block(f"up_{i}_block1")
+                block(f"up_{i}_block2")
+                spec = m[f"up_{i}_spec_us"](spec)
+            block("final_block", net=False)
+            # the up path takes the skips of levels n-1 .. 1 (level 0's is unread)
+            return SpecProjections(tuple(spec_h), tuple(reversed(skips[1:])))
+
+    def _x_stream(self, x: torch.Tensor, t: torch.Tensor, proj: SpecProjections) -> torch.Tensor:
+        """The x stream alone, reading the spectrogram stream's `proj`."""
+        m = self._modules
+        spec_h = iter(proj.spec_h)
+        x = self.init_conv(x[:, None])
+        t_emb = self.time_mlp(t)
+
+        def block(name: str, x: torch.Tensor) -> torch.Tensor:
+            with span("unet.block"):
+                return m[name].x_part(x, next(spec_h), t_emb)
+
+        skips = []
+        for i in range(self.n_levels):
+            x = block(f"down_{i}_block2", block(f"down_{i}_block1", x))
+            x = m[f"down_{i}_attn"](x)
+            skips.append(x)
+            if i < self.n_levels - 1:
+                with span("unet.resample"):
+                    x = m[f"down_{i}_ds"](x)
+        x = block("mid_block2", self.mid_attn(block("mid_block1", x)))
+        for i in range(self.n_levels - 1):
+            x = block(f"up_{i}_block1", torch.cat([x, skips.pop(), proj.skips[i]], dim=1))
+            x = m[f"up_{i}_attn"](block(f"up_{i}_block2", x))
+            with span("unet.resample"):
+                x = m[f"up_{i}_us"](x)
+        return self.final_conv(block("final_block", x))[:, 0]
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: Optional[torch.Tensor],
+                uncond_mask: Optional[torch.Tensor] = None,
+                cond_proj: Optional[SpecProjections] = None) -> torch.Tensor:
+        """With `cond_proj` (`cond_projections`' output for these rows) the x
+        stream alone, `cond` and `uncond_mask` unread; else both streams."""
+        if cond_proj is not None:
+            return self._x_stream(x, t, cond_proj)
         m = self._modules
         x = self.init_conv(x[:, None])
-        spec = self.spec_init_fc(self.spec_init_conv(cond[:, None]))  # (B, C, T, 88)
+        spec = self._spec_input(cond, uncond_mask)
         t_emb = self.time_mlp(t)
         skips = []
         for i in range(self.n_levels):

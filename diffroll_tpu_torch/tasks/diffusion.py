@@ -17,9 +17,13 @@ both routes run their plain PyTorch versions.
 
 The model families the kernels do not cover (`supports_fused` is false:
 trainable conditioning, the 2-D net, the U-Nets) take the `nn.Module` path
-in both, as the JAX package takes XLA. A U-Net runs its whole conditioned
-forward every step, SpecUnet's spectrogram stream included, although that
-stream reads neither x nor t and so could be computed once a window.
+in both, as the JAX package takes XLA. The step loop's module path computes
+what depends on the conditioner alone once a batch (`cond_projections`, for
+both guidance branches `cfg_cond_projections`) and hands it to every step's
+forward as `cond_proj`: the stacks' per-layer conditioner projections, and
+SpecUnet's whole spectrogram stream, which reads neither x nor t, so that a
+step runs its x stream alone. The unconditional `UnetNet` has no
+conditioner and runs its forward every step.
 
 With a data axis (`mesh`, parallel/mesh.py) the task's draws are the
 global batch's, striped: `loss_fn` draws t, noise and the dropout mask for
@@ -340,36 +344,24 @@ class DiffusionTask:
 
             return self.make_step_fn_from_net(net, cond)
 
-        if not hasattr(model.net, "cond_projections"):
-            # nets without a separable conditioner projection (the U-Nets) run
-            # the conditioned forward every step
-            def predict(x, t_vec):
-                if cond is None or mc.unconditional:
-                    return model.apply(x, t_vec, None)
-                if generation:
-                    all_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-                    return model.apply(x, t_vec, cond, all_mask)
-                if guided:
-                    return cfg_mix(*model.apply_cfg(x, t_vec, cond), cfg.w)
-                return model.apply(x, t_vec, cond)
+        # the plain module path, conditioner projections precomputed per clip;
+        # the unconditional UnetNet, which reads no conditioner, has none
+        if cond is None or mc.unconditional or not hasattr(model.net, "cond_projections"):
+            proj = None
+        elif generation:
+            proj = model.cond_projections(
+                cond, torch.ones(cond.shape[0], dtype=torch.bool, device=cond.device))
+        elif guided:
+            proj = model.cfg_cond_projections(cond)
         else:
-            # the plain module path, conditioner projections precomputed per clip
-            if cond is None or mc.unconditional:
-                proj = None
-            elif generation:
-                proj = model.cond_projections(
-                    cond, torch.ones(cond.shape[0], dtype=torch.bool, device=cond.device))
-            elif guided:
-                proj = model.cfg_cond_projections(cond)
-            else:
-                proj = model.cond_projections(cond)
+            proj = model.cond_projections(cond)
 
-            def predict(x, t_vec):
-                if proj is None:
-                    return model.apply(x, t_vec, None)
-                if guided:
-                    return cfg_mix(*model.apply_cfg(x, t_vec, cond_proj=proj), cfg.w)
-                return model.apply(x, t_vec, None, cond_proj=proj)
+        def predict(x, t_vec):
+            if proj is None:
+                return model.apply(x, t_vec, None)
+            if guided:
+                return cfg_mix(*model.apply_cfg(x, t_vec, cond_proj=proj), cfg.w)
+            return model.apply(x, t_vec, None, cond_proj=proj)
 
         def step(x, t, t_prev, noise):
             t_vec = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)

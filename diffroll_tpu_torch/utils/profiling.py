@@ -36,14 +36,18 @@ same clock as the card's kernels and copies:
   serve.copy_out        the batch's rolls to the host
   serve.deliver         the rolls handed to their requests
   unet.block            nn/unet.py, a U-Net block's forward (a SpecUnet
-                        block's two streams together)
+                        block's two streams together, or its part of one)
   unet.linear_attn      a linear attention with its norm and residual
   unet.attn             the bottleneck's full attention, likewise
   unet.resample         a level's down- or up-samplers
+  unet.spec_stream      SpecUnetNet.cond_projections: the spectrogram stream
+                        alone, once a batch in sampling
   unet.norm             a U-Net GroupNorm (nn/unet.py::GroupNorm), inside
-                        `unet.block`, `unet.linear_attn` or `unet.attn`
+                        `unet.block`, `unet.linear_attn`, `unet.attn` or
+                        `unet.spec_stream`
   unet.dwconv           a U-Net depthwise 7x7 conv
                         (nn/unet.py::DepthwiseConv2d), inside `unet.block`
+                        or `unet.spec_stream`
 
 A profile records only the threads it was started on unless it is started
 with `profile_all_threads` (`torch._C._profiler._ExperimentalConfig`), so

@@ -868,3 +868,30 @@ def test_unet_step_matches_its_aten_route(cuda_f32, monkeypatch):
     assert _rel(got[0], want[0]) < DW_GATE
     for name, g in want[1].items():
         assert _rel(got[1][name], g) < DW_GATE, name
+
+
+@pytest.mark.gpu
+def test_spec_unet_guided_step_reads_the_stream_once(cuda_f32):
+    """SpecUnet's guided step at the published widths and B=8 (16 rows): the
+    spectrogram stream once (`cfg_cond_projections`) plus the x stream alone
+    equals the whole forward on both branches; the stream's 24 norms and 11
+    depthwise convs run once, the x stream's 37 and 13 every step."""
+    dev = cuda_f32
+    torch.manual_seed(0)
+    tm = tmodels.build("SpecUnet").to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(8, 640, 88, device=dev, generator=gen)
+    t = torch.full((8,), 57, device=dev, dtype=torch.long)
+    with torch.no_grad():
+        cond = tm.conditioner(waveform=0.1 * torch.randn(8, 640 * 512, device=dev,
+                                                          generator=gen))
+        counters = (tgn.group_norm, tdw.depthwise_conv)
+        before = [c.launches for c in counters]
+        proj = tm.cfg_cond_projections(cond)
+        stream = [c.launches - b for c, b in zip(counters, before)]
+        got = torch.cat(tm.apply_cfg(x, t, cond_proj=proj))
+        step = [c.launches - b - s for c, b, s in zip(counters, before, stream)]
+        want = torch.cat(tm.apply_cfg(x, t, cond))
+    torch.cuda.synchronize()
+    assert (stream, step) == ([24, 11], [37, 13])
+    assert want.abs().max() > 0.1 and _rel(got, want) < 1e-5
